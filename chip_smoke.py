@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out FILE.json]
 
@@ -13,20 +13,36 @@ ends the run with a non-zero exit code:
    ``brats_recipe(num_channels_dae=64, image_size=256)`` with seeded
    non-trivial weights, each request a batch of 4 slices through the
    4-step bf16 sampler with bf16-score attention.  The kernels' launch
-   counts are zeroed just before and read just after; every kernel must
-   have launched, exactly as often as the module structure says, and a
+   counts are zeroed just before and read just after; each must equal
+   what the module structure says (K3 launches 0 times here), and a
    kernel call that would record a graph must raise (no backward yet);
-4. at every distinct shape that run gave each kernel, hold the kernel
-   against its plain PyTorch version (bf16 and fp32), and time the
-   kernel, the plain version and one library call computing the same
-   function (cuDNN conv, depthwise conv, conv-transpose) with CUDA
-   events; the bound is the larger of bytes / HBM rate and operations /
-   peak rate of the card;
-5. the whole sample with the plain versions forced, same weights and
+4. whole-volume prediction through the port's CLI
+   (``mudiff_torch.cli.test_volume.main``, ``--bf16 --attn flash``) on
+   three seeded synthetic 240x240x155 contrasts written as .nii.gz, with
+   the same weights saved by ``save_generators``: 25 slices in 4 batches
+   of 8, the last one padded.  Counted as in 3 (32 K3 launches); the
+   output NIfTI is checked (shape, affine, zeros outside the slices,
+   finite and not constant inside) and the phase is timed;
+5. the same volume with the plain versions forced (same seed, so the
+   same draws), and both again in fp32 (``--no_bf16``): the fp32 volumes
+   within ``SAMPLE_TOL["fp32"]``, the bf16 ones within
+   ``BF16_VOLUME_TOL`` (``volume_drift.py`` measures what sets it);
+6. at every distinct shape either path gave each kernel (and, for K3,
+   the nf=128 width and a ragged length), hold the kernel against its
+   plain PyTorch version (bf16 and fp32), and time the kernel, the plain
+   version and one library call computing the same function (cuDNN
+   conv, depthwise conv, conv-transpose, scaled_dot_product_attention)
+   with CUDA events; the bound is the larger of bytes / HBM rate and
+   operations / peak rate of the card;
+7. the whole sample with the plain versions forced, same weights and
    injected noise: bf16 and fp32 differences against stated tolerances;
-6. best-of-N slices/s of one request, and one request under
-   torch.profiler (device time by kernel, the device's idle share);
-7. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+8. best-of-N slices/s of one request, and one request under
+   torch.profiler (device time by kernel, the device's idle share), then
+   one batch-8 sample of the volume phase's sampler (--attn flash) too;
+9. every kernel must have launched in 3 or 4; the kernels summed over
+   the volume phase's launches, then the ``kernels`` JSON line (K1 and K2
+   over the main path's launches, K3 over the volume phase's), then
+   ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 ``mudiff_torch`` package is not beside the script.  ``--out`` also
@@ -36,10 +52,13 @@ writes every per-shape row and the nvcc log to a JSON file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -48,6 +67,14 @@ BATCH = 4
 REQUESTS = 3
 NF = 64
 IMAGE = 256
+# The volume phase: a BraTS-shaped volume, the centre +-12 axial slices
+# (25) through the CLI's default batch of 8 (4 batches, the last padded).
+VOLUME_SHAPE = (240, 240, 155)
+VOLUME_HALF = 12
+VOLUME_BATCH = 8
+# K3 shapes held and timed beside those the volume phase gives: the
+# nf=128 width (C = 512) and a ragged length.
+FLASH_EXTRA_SHAPES = ((4, 4096, 512), (2, 1000, 256))
 
 # Tolerances, kernel vs plain version on the same inputs.  Both
 # accumulate in fp32; in bf16 they round the same fp32 sum once, so a
@@ -62,6 +89,21 @@ LIB_TOL = (5e-2, 5e-2)
 # in bf16 one-ulp flips (0.0078 at 1.0) propagate through 8 generator
 # forwards; in fp32 only summation order differs.
 SAMPLE_TOL = {"bf16": 5e-2, "fp32": 1e-3}
+# K3 vs its plain version.  bf16: the kernel rounds the unnormalised p =
+# exp(s - m) to bf16 before p.v, the plain version the normalised
+# weights, so the two differ by about one bf16 ulp (2^-8) of max|v|.
+# fp32: only the order of the sums differs.
+FLASH_TOL = {"bf16": (2e-2, 2e-2), "fp32": (1e-4, 1e-4)}
+# The bf16 volume through the kernels vs the plain bf16 volume, max abs in
+# [-1, 1] units.  Not 5e-2 as for one sample: K3 cannot agree with its
+# plain version bit for bit (it rounds p where the plain version rounds
+# the weights), and the 4-step sampler amplifies each bf16 flip in the
+# attention output over 25 slices of 240^2.  volume_drift.py read 0.078,
+# 0.054 and 0.071 on seeds 0-2 (K1 and K2 alone: 0.0); the limit is 1.5x
+# the largest.  It catches only gross faults: a K3 scale off by 8% read
+# 0.085-0.136.  Finer K3 faults are the per-shape and fp32 checks' to
+# catch (PERF.md §6).
+BF16_VOLUME_TOL = 0.12
 
 # Published dense peaks of the card (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 CUDA-core FLOP/s, device-memory bytes/s.
@@ -145,8 +187,8 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
 
 
 def conv_rows(shapes, peaks, card):
-    """K1 at each main-path shape: checks, times, bound.  ``shapes`` maps
-    (x shape, Cout, dtype) to the launches the main path's run made."""
+    """K1 at each shape of either path: checks, times, bound.  ``shapes``
+    maps (x shape, Cout, dtype) to its launch counts (``shape_counts``)."""
     import torch
     import torch.nn.functional as F
 
@@ -155,7 +197,7 @@ def conv_rows(shapes, peaks, card):
     bf16_peak, fp32_peak, hbm = peaks
     g = torch.Generator(DEVICE).manual_seed(SEED + 1)
     rows = []
-    for (xshape, cout, dtype), launches in sorted(shapes.items(), key=str):
+    for (xshape, cout, dtype), counts in sorted(shapes.items(), key=str):
         b, h, w, cin = xshape
         x = torch.randn(xshape, generator=g, device=DEVICE)
         wt = torch.randn((3, 3, cin, cout), generator=g, device=DEVICE) / math.sqrt(9 * cin)
@@ -165,7 +207,7 @@ def conv_rows(shapes, peaks, card):
             xd, wd = x.to(dt), wt.to(dt)
             errs[tag] = check_close(f"conv3x3 {xshape}->{cout} {tag}", conv3x3(xd, wd, bias),
                                     conv3x3_plain(xd, wd, bias), *TOL[tag])
-        # timed in the dtype the main path gave this shape
+        # timed in the dtype the path gave this shape
         xd, wd = x.to(dtype), wt.to(dtype)
         x_nchw = xd.permute(0, 3, 1, 2)  # a channels_last view, no copy
         w_oihw = wd.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -178,7 +220,7 @@ def conv_rows(shapes, peaks, card):
         nbytes = size * (b * h * w * (cin + cout) + 9 * cin * cout) + 4.0 * cout
         rows.append({
             "kernel": "conv3x3", "x": list(xshape), "cout": cout, "dtype": str(dtype)[6:],
-            "launches": launches, "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
+            **counts, "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
             "ms": time_ms(lambda: conv3x3(xd, wd, bias)),
             "plain_ms": time_ms(lambda: conv3x3_plain(xd, wd, bias)),
             "library_ms": time_ms(lambda: F.conv2d(x_nchw, w_oihw, bias_d, padding=1)),
@@ -190,7 +232,8 @@ def conv_rows(shapes, peaks, card):
 
 
 def fir_rows(shapes, peaks, card):
-    """K2a/K2b at each main-path shape: checks, times, bound."""
+    """K2a/K2b at each shape of either path: checks, times, bound.
+    ``shapes`` maps (name, x shape, dtype) to its launch counts."""
     import torch
     import torch.nn.functional as F
 
@@ -200,7 +243,7 @@ def fir_rows(shapes, peaks, card):
     k = (1, 3, 3, 1)
     g = torch.Generator(DEVICE).manual_seed(SEED + 2)
     rows = []
-    for (name, xshape, dtype), launches in sorted(shapes.items(), key=str):
+    for (name, xshape, dtype), counts in sorted(shapes.items(), key=str):
         b, h, w, c = xshape
         x = torch.randn(xshape, generator=g, device=DEVICE)
         down = name == "fir_down2"
@@ -210,7 +253,7 @@ def fir_rows(shapes, peaks, card):
                              ("fp32", torch.float32, FIR_TOL_FP32)):
             xd = x.to(dt)
             errs[tag] = check_close(f"{name} {xshape} {tag}", kern(xd, k), plain(xd, k, 2), *tol)
-        # timed in the dtype the main path gave this shape
+        # timed in the dtype the path gave this shape
         xd = x.to(dtype)
         x_nchw = xd.permute(0, 3, 1, 2)
         taps = torch.tensor(setup_fir_kernel(k), device=DEVICE)
@@ -227,7 +270,7 @@ def fir_rows(shapes, peaks, card):
         nbytes = xd.element_size() * (b * h * w * c + out_elems)
         rows.append({
             "kernel": name, "x": list(xshape), "dtype": str(dtype)[6:],
-            "launches": launches, "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
+            **counts, "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
             "ms": time_ms(lambda: kern(xd, k)),
             "plain_ms": time_ms(lambda: plain(xd, k, 2)),
             "library_ms": time_ms(library),
@@ -238,55 +281,321 @@ def fir_rows(shapes, peaks, card):
     return rows
 
 
+def sdpa_call(q, k, v, scale):
+    """The library's attention on (B, 1, L, C) views: the first of the
+    flash, memory-efficient, cuDNN and math backends that takes the call.
+    Returns (backend name, a function that calls it)."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = (t[:, None] for t in (q, k, v))
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)[:, 0]
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                call()
+        except RuntimeError:
+            continue
+        return backend.name, call
+    raise AssertionError("no scaled_dot_product_attention backend takes the call")
+
+
+def flash_rows(shapes, peaks, card):
+    """K3 at each shape: checks, times, bound.  ``shapes`` maps
+    (B, L, C, dtype) to its launch counts."""
+    import torch
+
+    from mudiff_torch.ops import flash_attn, flash_attn_plain
+
+    bf16_peak, fp32_peak, hbm = peaks
+    g = torch.Generator(DEVICE).manual_seed(SEED + 3)
+    rows = []
+    for (b, length, c, dtype), counts in sorted(shapes.items(), key=str):
+        scale = float(c) ** -0.5
+        # q at twice the scale of k: scores ~ N(0, 4), a peaked softmax
+        q = 2.0 * torch.randn((b, length, c), generator=g, device=DEVICE)
+        k, v = (torch.randn((b, length, c), generator=g, device=DEVICE) for _ in range(2))
+        errs = {}
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+            errs[tag] = check_close(f"flash_attn {(b, length, c)} {tag}",
+                                    flash_attn(qd, kd, vd, scale),
+                                    flash_attn_plain(qd, kd, vd, scale), *FLASH_TOL[tag])
+        # timed in the dtype the run gave this shape
+        qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+        backend, library = sdpa_call(qd, kd, vd, scale)
+        check_close(f"SDPA ({backend}) {(b, length, c)}", library(),
+                    flash_attn_plain(qd, kd, vd, scale), *LIB_TOL)
+        size = qd.element_size()
+        rows.append({
+            "kernel": "flash_attn", "shape": [b, length, c], "dtype": str(dtype)[6:],
+            **counts, "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
+            "ms": time_ms(lambda: flash_attn(qd, kd, vd, scale)),
+            "plain_ms": time_ms(lambda: flash_attn_plain(qd, kd, vd, scale)),
+            "library_ms": time_ms(library), "library": f"scaled_dot_product_attention ({backend})",
+            "flop_ms": 4.0 * b * length * length * c
+                       / (bf16_peak if size == 2 else fp32_peak) * 1e3,
+            "byte_ms": 4.0 * b * length * c * size / hbm * 1e3,
+        })
+        print(json.dumps({"card": card, **rows[-1]}), flush=True)
+    return rows
+
+
 SOURCES = {
     "conv3x3": ("mudiff_torch/csrc/conv3x3_kernel.cu", "mudiff_tpu/ops/pallas_conv.py:375"),
     "fir_down2": ("mudiff_torch/csrc/fir_kernels.cu", "mudiff_tpu/ops/pallas_fir.py:271"),
     "fir_up2": ("mudiff_torch/csrc/fir_kernels.cu", "mudiff_tpu/ops/pallas_fir.py:292"),
+    # a stock Pallas kernel outside the repo, named by its call site
+    "flash_attn": ("mudiff_torch/csrc/flash_attn_kernel.cu", "mudiff_tpu/nn/blocks.py:211"),
 }
 
 
-def kernel_summary(name, rows, launches):
+# The launch counts of each row: the main path's run and the volume
+# phase's counted run.  The ``kernels`` line sums each kernel over the
+# main path's launches, except K3, which only the volume phase runs.
+PATHS = ("launches", "volume_launches")
+COUNTED_IN = {"flash_attn": "volume_launches"}
+
+
+def shape_counts(logs: dict) -> dict:
+    """{kernel: {shape key: {path: launches}}} from the ``record_calls``
+    log of each path (``logs`` maps a name of ``PATHS`` to its log)."""
+    counts = {}
+    for path, log in logs.items():
+        for kname, key in log:
+            per = counts.setdefault(kname, {}).setdefault(key, dict.fromkeys(PATHS, 0))
+            per[path] += 1
+    return counts
+
+
+def run_of(path: str) -> str:
+    """The run whose launches the count ``path`` holds."""
+    if path == "volume_launches":
+        n = 2 * VOLUME_HALF + 1
+        return (f"the volume phase's run: {n} slices of a {VOLUME_SHAPE} volume in "
+                f"{math.ceil(n / VOLUME_BATCH)} batches of {VOLUME_BATCH}, each a 4-step "
+                f"sample with --attn flash")
+    return (f"the main path's run: {REQUESTS} requests, each a 4-step sample "
+            f"of batch {BATCH}")
+
+
+def kernel_summary(name, rows, launches, path=None):
     """One kernel's entry of the ``kernels`` line.  Every time is summed
-    over the launches the main path's run made (per-launch time at each
-    shape x that shape's launches), so it covers the same work as
-    ``launches``."""
+    over the launches of one run (``path``, by default the one
+    ``COUNTED_IN`` names): per-launch time at each shape x that shape's
+    launches in the run, so it covers the same work as ``launches``."""
+    path = path or COUNTED_IN.get(name, "launches")
     mine = [r for r in rows if r["kernel"] == name]
-    if sum(r["launches"] for r in mine) != launches:
+    if sum(r[path] for r in mine) != launches:
         raise AssertionError(f"{name}: per-shape launches do not add up to {launches}")
 
     def total(key):
-        return sum(r["launches"] * r[key] for r in mine)
+        return sum(r[path] * r[key] for r in mine)
 
     compute = total("flop_ms")
     memory = total("byte_ms")
-    bound = sum(r["launches"] * max(r["flop_ms"], r["byte_ms"]) for r in mine)
+    bound = sum(r[path] * max(r["flop_ms"], r["byte_ms"]) for r in mine)
     return {
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1], "launches": launches,
         "max_abs_err": max(r["err_bf16"] for r in mine),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": bound,
         "bound_by": "operations" if compute >= memory else "bytes",
-        "library_ms": total("library_ms"),
-        "per": f"the main path's run: {REQUESTS} requests, each a 4-step sample "
-               f"of batch {BATCH}", "shapes": len(mine),
+        "library_ms": total("library_ms"), "per": run_of(path),
+        "shapes": sum(1 for r in mine if r[path]),
     }
 
 
 def refuses_grad(device) -> None:
-    """A kernel has no backward yet: a CUDA call that would record a
+    """The kernels have no backward yet: a CUDA call that would record a
     graph must raise instead of returning a result with no gradient."""
     import torch
 
-    from mudiff_torch.ops import conv3x3
+    from mudiff_torch.ops import conv3x3, flash_attn
 
     x = torch.randn((1, 4, 4, 8), device=device)
     w = torch.randn((3, 3, 8, 8), device=device, requires_grad=True)
-    with torch.enable_grad():
-        try:
-            conv3x3(x, w)
-        except RuntimeError:
-            return
-    raise AssertionError("conv3x3 launched on a tensor that requires grad")
+    q = torch.randn((1, 16, 8), device=device, requires_grad=True)
+    calls = {"conv3x3": lambda: conv3x3(x, w), "flash_attn": lambda: flash_attn(q, q, q, 0.5)}
+    for name, call in calls.items():
+        with torch.enable_grad():
+            try:
+                call()
+            except RuntimeError:
+                continue
+        raise AssertionError(f"{name} launched on a tensor that requires grad")
+
+
+def synthetic_contrasts(seed: int):
+    """Three seeded brain-like volumes of VOLUME_SHAPE: an ellipsoid of
+    smooth noise on a zero background, so that the percentiles and the
+    zero-padding of the volume path are real."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(seed)
+    x, y, z = np.meshgrid(*[np.linspace(-1, 1, n, dtype=np.float32) for n in VOLUME_SHAPE],
+                          indexing="ij")
+    r2 = (x / 0.8) ** 2 + (y / 0.95) ** 2 + (z / 0.9) ** 2
+    vols = []
+    for i in range(3):
+        coarse = torch.from_numpy(rng.randn(1, 1, 12, 12, 8).astype(np.float32))
+        smooth = F.interpolate(coarse, size=VOLUME_SHAPE, mode="trilinear",
+                               align_corners=False)[0, 0].numpy()
+        tissue = (300.0 + 100.0 * i) * (1.5 + 0.5 * np.tanh(smooth) - 0.3 * r2)
+        vols.append(np.where(r2 < 1.0, tissue, 0.0).astype(np.float32))
+    return vols
+
+
+def structure_launches(cfg, attn: str) -> dict:
+    """Kernel launches of one 4-step sample with ``attn``, from the
+    module structure of G1 and G2."""
+    import torch
+
+    from mudiff_torch.models import NCSNppGenerator
+
+    with torch.device("meta"):
+        gens = [NCSNppGenerator(cfg, adaptive=a, attn=attn, device="meta")
+                for a in (False, True)]
+    counts = [g.kernel_launches_per_forward() for g in gens]
+    return {k: cfg.num_timesteps * (counts[0][k] + counts[1][k]) for k in counts[0]}
+
+
+def volume_argv(cfg, workdir: str, out_dir: str) -> list:
+    """The CLI's arguments: cfg's architecture, the three inputs, exact
+    bf16 serving with flash attention."""
+    return [
+        "--bf16", "--attn", "flash", "--image_size", str(cfg.image_size),
+        "--num_channels", str(cfg.num_channels), "--num_channels_dae", str(cfg.num_channels_dae),
+        "--ch_mult", *map(str, cfg.ch_mult), "--num_res_blocks", str(cfg.num_res_blocks),
+        "--attn_resolutions", ",".join(map(str, cfg.attn_resolutions)),
+        "--num_timesteps", str(cfg.num_timesteps), "--nz", str(cfg.nz),
+        "--z_emb_dim", str(cfg.z_emb_dim), "--n_mlp", str(cfg.n_mlp),
+        "--slice_half_range", str(VOLUME_HALF), "--test_batch_size", str(VOLUME_BATCH),
+        "--ckpt_dir", os.path.join(workdir, "ckpt"), "--output_dir", out_dir,
+        *[arg for m in ("flair", "t2", "t1")
+          for arg in (f"--input_{m}", os.path.join(workdir, f"{m}.nii.gz"))],
+    ]
+
+
+AFFINE = ((-1.0, 0.0, 0.0, 120.0), (0.0, -1.0, 0.0, 120.0), (0.0, 0.0, 1.0, -77.0),
+          (0.0, 0.0, 0.0, 1.0))
+
+
+def check_volume(path: str):
+    """The predicted NIfTI: input shape and affine, zeros outside the
+    predicted slices, finite and not constant inside.  Returns its data."""
+    import numpy as np
+
+    from mudiff_torch.utils import nifti
+
+    img = nifti.load(path)
+    vol = img.get_fdata()
+    mid = VOLUME_SHAPE[2] // 2
+    band = vol[:, :, mid - VOLUME_HALF:mid + VOLUME_HALF + 1]
+    if img.shape != VOLUME_SHAPE or not np.allclose(img.affine, AFFINE):
+        raise AssertionError(f"predicted volume {img.shape}, affine {img.affine.tolist()}")
+    if vol[:, :, :mid - VOLUME_HALF].any() or vol[:, :, mid + VOLUME_HALF + 1:].any():
+        raise AssertionError("predicted volume is not zero outside the predicted slices")
+    if not np.isfinite(band).all() or float(band.std()) < 1e-3:
+        raise AssertionError(f"predicted slices: finite {np.isfinite(band).all()}, "
+                             f"std {float(band.std()):.3g}")
+    return vol
+
+
+def write_volume_inputs(workdir: str, sampler, seed: int) -> None:
+    """The CLI's inputs in ``workdir``: three synthetic contrasts made
+    from ``seed``, and the sampler's weights as its checkpoint."""
+    import numpy as np
+
+    from mudiff_torch.infer import save_generators
+    from mudiff_torch.utils import nifti
+
+    for name, vol in zip(("flair", "t2", "t1"), synthetic_contrasts(seed)):
+        nifti.save(vol, np.array(AFFINE), os.path.join(workdir, f"{name}.nii.gz"))
+    save_generators(os.path.join(workdir, "ckpt"), sampler.g1, sampler.g2)
+
+
+def run_volume(cfg, workdir: str, tag: str, extra=(), plain=False, record=None):
+    """One CLI run on the inputs in ``workdir``, its launches zeroed just
+    before and read just after.  Returns the checked output volume, the
+    run's wall seconds and its launch counts."""
+    import torch
+
+    from mudiff_torch import ops
+    from mudiff_torch.cli import test_volume
+
+    argv = volume_argv(cfg, workdir, os.path.join(workdir, tag)) + list(extra)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with ops.record_calls([] if record is None else record), \
+            (ops.plain_kernels() if plain else contextlib.nullcontext()):
+        t = time.perf_counter()
+        path = test_volume.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    return check_volume(path), seconds, ops.launch_counts()
+
+
+def volume_distance(a, b) -> float:
+    """Max abs difference of two predicted volumes in the sampler's
+    [-1, 1] units: the NIfTI holds the slices mapped to [0, 1] (clipped,
+    resized back to 240^2), so twice a difference there."""
+    import numpy as np
+
+    return 2.0 * float(np.abs(a - b).max())
+
+
+def volume_phases(cfg, sampler, card) -> dict:
+    """Phases 4 and 5: the test_volume CLI at full width with --attn
+    flash, counted and timed in bf16; the same volume with the plain
+    versions forced; and both again in fp32 (--no_bf16)."""
+    n_slices = 2 * VOLUME_HALF + 1
+    batches = math.ceil(n_slices / VOLUME_BATCH)
+    expected = {k: batches * v for k, v in structure_launches(cfg, "flash").items()}
+    log = []
+    runs = {  # tag: (extra flags, plain versions forced, call log)
+        "bf16": ((), False, log),  # the phase's counted run
+        "bf16 warm": ((), False, None),  # the same again, timed warm
+        "bf16 plain": ((), True, None),
+        "fp32": (("--no_bf16",), False, None),
+        "fp32 plain": (("--no_bf16",), True, None),
+    }
+    vols, seconds, counts = {}, {}, {}
+    with tempfile.TemporaryDirectory() as workdir:
+        write_volume_inputs(workdir, sampler, SEED + 40)
+        for tag, (extra, plain, record) in runs.items():
+            vols[tag], seconds[tag], counts[tag] = run_volume(cfg, workdir, tag, extra,
+                                                              plain, record)
+            want = dict.fromkeys(expected, 0) if plain else expected
+            if counts[tag] != want:
+                raise AssertionError(f"volume {tag}: launches {counts[tag]} != {want}")
+
+    diffs = {"fp32 kernels vs plain": volume_distance(vols["fp32"], vols["fp32 plain"]),
+             "bf16 kernels vs plain": volume_distance(vols["bf16"], vols["bf16 plain"]),
+             "bf16 kernels vs fp32 plain": volume_distance(vols["bf16"], vols["fp32 plain"]),
+             "bf16 plain vs fp32 plain": volume_distance(vols["bf16 plain"], vols["fp32 plain"])}
+    print(json.dumps({
+        "card": card, "phase": "volume (test_volume CLI)", "shape": list(VOLUME_SHAPE),
+        "slices": n_slices, "batch": VOLUME_BATCH, "batches": batches, "nf": cfg.num_channels_dae,
+        "image": cfg.image_size, "dtype": "bf16", "attn": "flash",
+        "launch_counts": counts["bf16"], "run_s": seconds,
+        "slices_per_s": n_slices / seconds["bf16"],
+        "slices_per_s_warm": n_slices / seconds["bf16 warm"],
+        "max_abs_diff": diffs, "tolerance": {"fp32": SAMPLE_TOL["fp32"], "bf16": BF16_VOLUME_TOL},
+    }), flush=True)
+    for tag, tol in (("fp32", SAMPLE_TOL["fp32"]), ("bf16", BF16_VOLUME_TOL)):
+        if not diffs[f"{tag} kernels vs plain"] <= tol:
+            raise AssertionError(f"{tag} volume, kernels vs plain: max abs diff "
+                                 f"{diffs[f'{tag} kernels vs plain']:.3g} > {tol}")
+    return {"launches": counts["bf16"], "log": log, "seconds": seconds, "diffs": diffs}
 
 
 # Device kernels of a request, grouped by the first group one of whose
@@ -295,6 +604,7 @@ PROFILE_GROUPS = (
     ("K1 conv3x3", ("conv3x3_kernel",)),
     ("K2a fir_down2", ("fir_down2_kernel",)),
     ("K2b fir_up2", ("fir_up2_kernel",)),
+    ("K3 flash_attn", ("flash_attn_kernel",)),
     ("copies and casts", ("copy", "memcpy", "memset")),
     ("reductions (GroupNorm statistics, means)", ("reduce_kernel",)),
     ("softmax", ("softmax",)),
@@ -391,7 +701,7 @@ def main(argv=None) -> int:
     expected = {k: REQUESTS * v for k, v in per_sample.items()}
     print(json.dumps({"launch_counts": launches, "expected": expected,
                       "request_s": seconds}), flush=True)
-    if launches != expected or min(launches.values()) <= 0:
+    if launches != expected:
         raise AssertionError(f"launches {launches} != structure's {expected}")
     for out in outs:
         if out.shape != (BATCH, IMAGE, IMAGE, 1) or not bool(torch.isfinite(out).all()):
@@ -401,15 +711,19 @@ def main(argv=None) -> int:
 
     refuses_grad(DEVICE)
 
-    conv_shapes, fir_shapes = {}, {}
-    for kname, key in log:
-        if kname == "conv3x3":
-            conv_shapes[key] = conv_shapes.get(key, 0) + 1
-        else:
-            fir_shapes[(kname, *key)] = fir_shapes.get((kname, *key), 0) + 1
+    # -- whole-volume prediction through the CLI, K3 on the path --------------
+    volume = volume_phases(cfg, sampler, card)
+
+    counts = shape_counts({"launches": log, "volume_launches": volume["log"]})
+    fir_shapes = {(kname, *key): c for kname in ("fir_down2", "fir_up2")
+                  for key, c in counts[kname].items()}
+    flash_shapes = {(*shape, torch.bfloat16): dict.fromkeys(PATHS, 0)
+                    for shape in FLASH_EXTRA_SHAPES}
+    flash_shapes.update(counts["flash_attn"])
 
     # -- each kernel against its plain version, timed ------------------------
-    rows = conv_rows(conv_shapes, peaks, card) + fir_rows(fir_shapes, peaks, card)
+    rows = (conv_rows(counts["conv3x3"], peaks, card) + fir_rows(fir_shapes, peaks, card)
+            + flash_rows(flash_shapes, peaks, card))
 
     # -- the whole sample, kernels vs plain versions -------------------------
     zgen = torch.Generator(DEVICE).manual_seed(SEED + 30)
@@ -464,11 +778,29 @@ def main(argv=None) -> int:
                       "plain_slices_per_s": BATCH / plain_best}), flush=True)
     print(json.dumps({"card": card, "profile_one_request":
                       profile_request(sampler, requests[0], ngen)}), flush=True)
+    # one batch of the volume phase's sampler (batch 8, --attn flash)
+    flash_sampler = build_sampler(cfg, device=DEVICE, attn="flash")
+    flash_sampler.g1.load_state_dict(sampler.g1.state_dict())
+    flash_sampler.g2.load_state_dict(sampler.g2.state_dict())
+    vconds = [torch.cat([c, c])[:VOLUME_BATCH] for c in requests[0]]
+    print(json.dumps({"card": card, "profile_one_volume_batch":
+                      profile_request(flash_sampler, vconds, ngen)}), flush=True)
 
-    kernels = [kernel_summary(k, rows, launches[k]) for k in ("conv3x3", "fir_down2", "fir_up2")]
+    # every kernel ran on a path: the main path or the volume phase
+    runs = {"launches": launches, "volume_launches": volume["launches"]}
+    counted = {k: runs[COUNTED_IN.get(k, "launches")][k] for k in ops.KERNEL_WRAPPERS}
+    idle = [k for k, n in counted.items() if n <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on a path: {idle}")
+    on_volume = [kernel_summary(k, rows, volume["launches"][k], "volume_launches")
+                 for k in ops.KERNEL_WRAPPERS]
+    print(json.dumps({"card": card, "volume_phase_kernels": on_volume}), flush=True)
+    kernels = [kernel_summary(k, rows, counted[k]) for k in ops.KERNEL_WRAPPERS]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "rows": rows, "kernels": kernels,
+                       "volume_phase_kernels": on_volume,
+                       "volume": {k: v for k, v in volume.items() if k != "log"},
                        "nvcc": {k: v["log"] for k, v in built.items()}}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -18,6 +18,13 @@ flax leaf                              port key                 layout change
 ``.../bias``, ``<nin>/b``              ``.../bias``             none
 =====================================  =======================  ==============
 
+``export_generators(params_g1, params_g2, out_dir)`` writes the two
+generators' state_dicts as ``gen_diffusive_{1,2}.pt``, the files that
+``infer.generators.load_generators`` reads.  Its inputs are what an orbax
+restore of a JAX checkpoint's ``gen_diffusive_{1,2}`` gives as numpy; the
+port itself never imports orbax (``README.md`` shows the few lines that
+run in an environment with JAX).
+
 The flax wrapper scopes ``conv`` (nn.Conv inside Conv3x3/Conv1x1),
 ``dense`` (nn.Dense inside Dense/_TembBias) and an AffineGroupNorm's
 inner ``GroupNorm_0`` have no module of their own in the port.  Strict
@@ -27,10 +34,13 @@ and the result loads with ``load_state_dict(state, strict=True)``.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+GENERATOR_FILES = ("gen_diffusive_1.pt", "gen_diffusive_2.pt")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -76,3 +86,16 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two flax leaves map to {key}")
         state[key] = torch.from_numpy(value)
     return state
+
+
+def export_generators(params_g1: Mapping[str, Any], params_g2: Mapping[str, Any],
+                      out_dir: str) -> Tuple[str, str]:
+    """flax params of G1 and G2 (nested dicts of arrays) -> the port's
+    ``gen_diffusive_{1,2}.pt`` under ``out_dir``; returns their paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for params, name in zip((params_g1, params_g2), GENERATOR_FILES):
+        path = os.path.join(out_dir, name)
+        torch.save(params_from_flax(params), path)
+        paths.append(path)
+    return tuple(paths)

@@ -99,7 +99,8 @@ class _ZTransform(nn.Module):
 class NCSNppGenerator(nn.Module):
     """NCSN++ with AdaGN; ``adaptive=True`` gives G2.
 
-    ``attn`` is the attention score lowering (``"einsum"`` | ``"bf16"``),
+    ``attn`` is the attention lowering (``"einsum"`` | ``"bf16"`` |
+    ``"flash"``, ``nn/blocks.py``),
     ``dtype`` the compute dtype (parameters stay float32).  Inputs are
     NHWC; ``forward(x, c1, c2, c3, t, z[, pseudo_target])`` returns the
     float32 prediction of x_0.
@@ -211,10 +212,11 @@ class NCSNppGenerator(nn.Module):
                 m.reset_parameters(generator)
 
     def kernel_launches_per_forward(self) -> Dict[str, int]:
-        """K1/K2a/K2b launches one forward makes, from the module structure:
-        every Conv3x3 module runs once, except the stems' per-stem convs,
-        which run fused (G1: 2 launches, G2: 5)."""
-        counts = {"conv3x3": 0, "fir_down2": 0, "fir_up2": 0}
+        """Kernel launches one forward makes, from the module structure:
+        every Conv3x3 module runs K1 once, except the stems' per-stem
+        convs, which run fused (G1: 2 launches, G2: 5); every
+        AttnBlockpp in ``flash`` mode runs K3 once."""
+        counts = {"conv3x3": 0, "fir_down2": 0, "fir_up2": 0, "flash_attn": 0}
         stem_roots = ["encoder_x", "pseudo_gap", *_GATES] + [
             n for n, _ in self.named_children()
             if n.startswith(("encoder_c", "feat_weight_c"))
@@ -225,6 +227,8 @@ class NCSNppGenerator(nn.Module):
             if isinstance(m, ResnetBlockBigGANppAdagn):
                 for k, v in m.fir_launches().items():
                     counts[k] += v
+            if isinstance(m, AttnBlockpp) and m.attn == "flash":
+                counts["flash_attn"] += 1
         counts["conv3x3"] += 5 if self.adaptive else 2
         return counts
 

@@ -19,9 +19,10 @@ import torch.nn.functional as F
 
 from mudiff_torch.nn.initializers import default_init, stylegan_dense_init
 from mudiff_torch.nn.layers import NIN, Conv1x1, Conv3x3, Dense
-from mudiff_torch.ops import conv_downsample_2d, fir_down2, fir_up2
+from mudiff_torch.ops import conv_downsample_2d, fir_down2, fir_up2, flash_attn
 
 _SQRT2 = math.sqrt(2.0)
+ATTN_MODES = ("einsum", "bf16", "flash")
 
 
 def _num_groups(channels: int) -> int:
@@ -94,16 +95,20 @@ class AttnBlockpp(nn.Module):
     ``attn`` is the score lowering (``mudiff_tpu/nn/blocks.py:215-233``):
     * ``"einsum"``: float32 scores and softmax (the exact path);
     * ``"bf16"``: scores rounded to bf16, scaled by bf16(C^-1/2), the
-      softmax in float32 and its weights cast to the compute dtype.
-    Both products are ``torch.matmul`` (the JAX package leaves them to XLA).
+      softmax in float32 and its weights cast to the compute dtype;
+    * ``"flash"``: q, k, v in the compute dtype through kernel K3
+      (``ops.flash_attn``, scale C^-1/2 as a Python float), the output
+      cast to the compute dtype (``blocks.py:206-214``).
+    For ``einsum`` and ``bf16`` both products are ``torch.matmul`` (the
+    JAX package leaves them to XLA).
     """
 
     def __init__(self, channels: int, skip_rescale: bool = False,
                  init_scale: float = 0.0, attn: str = "einsum",
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        if attn not in ("einsum", "bf16"):
-            raise ValueError(f"attn must be 'einsum' or 'bf16', got {attn!r}")
+        if attn not in ATTN_MODES:
+            raise ValueError(f"attn must be one of {ATTN_MODES}, got {attn!r}")
         self.skip_rescale = skip_rescale
         self.attn = attn
         self.dtype = dtype
@@ -121,6 +126,10 @@ class AttnBlockpp(nn.Module):
         k = self.NIN_1(h).reshape(b, hh * ww, c)
         v = self.NIN_2(h).reshape(b, hh * ww, c)
         scale = float(c) ** -0.5
+        if self.attn == "flash":
+            dt = self.dtype
+            h = flash_attn(q.to(dt), k.to(dt), v.to(dt), scale).to(dt).reshape(b, hh, ww, c)
+            return self._out(x, h)
         if self.attn == "bf16":
             bf = torch.bfloat16
             scores = torch.matmul(q.to(bf), k.to(bf).transpose(1, 2))
@@ -132,6 +141,9 @@ class AttnBlockpp(nn.Module):
             ) * scale
             w = torch.softmax(scores, dim=-1).to(self.dtype)
         h = torch.matmul(w, v.to(self.dtype)).reshape(b, hh, ww, c)
+        return self._out(x, h)
+
+    def _out(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         h = self.NIN_3(h)
         if not self.skip_rescale:
             return x + h

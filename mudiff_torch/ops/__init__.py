@@ -1,9 +1,11 @@
 """Ops of the port: the FIR family (plain PyTorch) and the hand-written
-CUDA kernels K1 (``conv3x3``), K2a (``fir_down2``) and K2b (``fir_up2``)."""
+CUDA kernels K1 (``conv3x3``), K2a (``fir_down2``), K2b (``fir_up2``) and
+K3 (``flash_attn``)."""
 
 from mudiff_torch.ops._dispatch import plain_kernels, record_calls
 from mudiff_torch.ops.conv3x3 import conv3x3, conv3x3_plain
 from mudiff_torch.ops.fir import fir_down2, fir_up2
+from mudiff_torch.ops.flash_attn import flash_attn, flash_attn_plain
 from mudiff_torch.ops.upfirdn2d import (
     conv_downsample_2d,
     downsample_2d,
@@ -12,7 +14,8 @@ from mudiff_torch.ops.upfirdn2d import (
     upsample_2d,
 )
 
-KERNEL_WRAPPERS = {"conv3x3": conv3x3, "fir_down2": fir_down2, "fir_up2": fir_up2}
+KERNEL_WRAPPERS = {"conv3x3": conv3x3, "fir_down2": fir_down2, "fir_up2": fir_up2,
+                   "flash_attn": flash_attn}
 
 
 def reset_launch_counts() -> None:

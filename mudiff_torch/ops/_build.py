@@ -28,6 +28,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "conv3x3": "conv3x3_kernel.cu",
     "fir": "fir_kernels.cu",
+    "flash_attn": "flash_attn_kernel.cu",
 }
 
 NVCC_FLAGS = [

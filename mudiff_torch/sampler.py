@@ -20,6 +20,16 @@ from mudiff_torch.diffusion.schedule import PosteriorCoefficients
 from mudiff_torch.models.generator import NCSNppGenerator
 
 
+def serving_device(device=None, what: str = "build_sampler") -> torch.device:
+    """``device`` as a torch.device, ``"cuda"`` by default; raises when
+    that is CUDA and no card is present."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: CUDA is not available; pass device='cpu' to run "
+                           "the plain PyTorch versions on the CPU")
+    return device
+
+
 class Sampler:
     """G1, G2 and the posterior tables on one device."""
 
@@ -66,16 +76,14 @@ def build_sampler(config: MuDiffConfig, device=None, attn: str = "bf16",
                   generator: Optional[torch.Generator] = None) -> Sampler:
     """G1 + G2 + posterior tables on ``device`` (default ``"cuda"``).
 
+    ``attn`` is the attention lowering of both generators: ``"bf16"``
+    (the default), ``"einsum"`` or ``"flash"`` (kernel K3).
+
     Weights are drawn from the JAX package's initial distributions with
     ``generator`` (a CPU ``torch.Generator``; load trained weights with
     ``sampler.g1.load_state_dict``, e.g. from ``convert.params_from_flax``).
     """
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "build_sampler: CUDA is not available; pass device='cpu' to run "
-            "the plain PyTorch versions on the CPU"
-        )
+    device = serving_device(device)
     gens = [
         NCSNppGenerator(config, adaptive=adaptive, attn=attn,
                         dtype=compute_dtype, generator=generator)

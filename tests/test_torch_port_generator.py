@@ -105,8 +105,11 @@ def test_kernel_launches_per_forward_at_nf64():
     with torch.device("meta"):
         g1 = NCSNppGenerator(cfg, device="meta")
         g2 = NCSNppGenerator(cfg, adaptive=True, device="meta")
-    assert g1.kernel_launches_per_forward() == {"conv3x3": 45, "fir_down2": 4, "fir_up2": 4}
-    assert g2.kernel_launches_per_forward() == {"conv3x3": 48, "fir_down2": 4, "fir_up2": 4}
+    # the default einsum attention launches no K3
+    assert g1.kernel_launches_per_forward() == {"conv3x3": 45, "fir_down2": 4, "fir_up2": 4,
+                                                "flash_attn": 0}
+    assert g2.kernel_launches_per_forward() == {"conv3x3": 48, "fir_down2": 4, "fir_up2": 4,
+                                                "flash_attn": 0}
 
 
 def test_config_copy_equals_jax_config():

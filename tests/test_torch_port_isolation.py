@@ -29,6 +29,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "mudiff_tpu"))
 print(len(names), bad)
 assert len(names) >= 15, names
+assert {"mudiff_torch.infer.volume", "mudiff_torch.infer.generators",
+        "mudiff_torch.cli.args", "mudiff_torch.cli.test_volume",
+        "mudiff_torch.utils.nifti", "mudiff_torch.ops.flash_attn"} <= set(names), names
 assert not bad, bad
 """
 
@@ -45,7 +48,7 @@ def test_port_imports_no_jax_or_mudiff_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", ["mudiff_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("path", ["mudiff_torch", "chip_smoke.py", "volume_drift.py"])
 def test_sources_name_no_jax_import(path):
     files = [REPO / path] if path.endswith(".py") else sorted((REPO / path).rglob("*.py"))
     for f in files:
@@ -80,10 +83,59 @@ def test_chip_smoke_kernels_line_has_every_key():
         chip_smoke.kernel_summary("fir_up2", rows, 5)
 
 
+def test_chip_smoke_flash_attn_entry_sums_the_volume_phase():
+    """K3's entry counts the volume phase's launches; a shape that only
+    the comparison ran (0 launches) adds to no time, and counts that
+    disagree are refused."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    rows = [
+        {"kernel": "flash_attn", "launches": 0, "volume_launches": 32, "err_bf16": 0.004,
+         "ms": 5.0, "plain_ms": 9.0, "library_ms": 0.5, "flop_ms": 0.14, "byte_ms": 0.005},
+        {"kernel": "flash_attn", "launches": 0, "volume_launches": 0, "err_bf16": 0.006,
+         "ms": 4.0, "plain_ms": 8.0, "library_ms": 0.6, "flop_ms": 0.14, "byte_ms": 0.005},
+    ]
+    entry = chip_smoke.kernel_summary("flash_attn", rows, 32)
+    assert entry["source"] == "mudiff_torch/csrc/flash_attn_kernel.cu"
+    assert entry["launches"] == 32 and entry["max_abs_err"] == 0.006
+    assert abs(entry["ms"] - 160.0) < 1e-9 and abs(entry["bound_ms"] - 32 * 0.14) < 1e-9
+    assert entry["bound_by"] == "operations" and "volume" in entry["per"]
+    assert entry["shapes"] == 1
+    with pytest.raises(AssertionError, match="add up"):
+        chip_smoke.kernel_summary("flash_attn", rows, 8)
+
+
+def test_chip_smoke_rows_count_each_path_on_its_own():
+    """A shape both paths gave K1 is held and timed once and counted in
+    each path's summary with that path's launches; the volume phase's
+    batch-8 shapes add nothing to the main path's entry."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    log_main = [("conv3x3", ("a",))] * 3
+    log_volume = [("conv3x3", ("a",)), ("conv3x3", ("b",)), ("conv3x3", ("b",))]
+    counts = chip_smoke.shape_counts({"launches": log_main, "volume_launches": log_volume})
+    assert counts == {"conv3x3": {("a",): {"launches": 3, "volume_launches": 1},
+                                  ("b",): {"launches": 0, "volume_launches": 2}}}
+    times = {("a",): 1.0, ("b",): 2.0}
+    rows = [{"kernel": "conv3x3", **c, "err_bf16": 0.0, "ms": times[key], "plain_ms": 0.0,
+             "library_ms": 0.0, "flop_ms": 0.1, "byte_ms": 0.0}
+            for key, c in counts["conv3x3"].items()]
+    main = chip_smoke.kernel_summary("conv3x3", rows, 3)
+    volume = chip_smoke.kernel_summary("conv3x3", rows, 3, "volume_launches")
+    assert "main path" in main["per"] and abs(main["ms"] - 3.0) < 1e-12
+    assert main["shapes"] == 1
+    assert "volume" in volume["per"] and abs(volume["ms"] - 5.0) < 1e-12
+    assert volume["shapes"] == 2
+
+
 @pytest.mark.parametrize("kernel,function", [
     ("conv3x3", "def conv3x3_gemm("),
     ("fir_down2", "def downsample_2d_pallas("),
     ("fir_up2", "def upsample_2d_pallas("),
+    # K3 is a stock kernel outside the repo: named by its call site
+    ("flash_attn", "h = flash_attention("),
 ])
 def test_chip_smoke_names_the_tpu_kernel_each_kernel_replaces(kernel, function):
     sys.path.insert(0, str(REPO))
@@ -92,7 +144,11 @@ def test_chip_smoke_names_the_tpu_kernel_each_kernel_replaces(kernel, function):
     source, replaces = chip_smoke.SOURCES[kernel]
     assert (REPO / source).is_file()
     path, line = replaces.split(":")
-    assert (REPO / path).read_text().splitlines()[int(line) - 1].startswith(function)
+    text = (REPO / path).read_text().splitlines()[int(line) - 1]
+    if function.startswith("def "):
+        assert text.startswith(function)
+    else:
+        assert text.strip() == function
 
 
 def _smoke(cwd, env):

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""How far the bf16 volume through the port's kernels lies from the bf16
+volume through their plain versions, over seeds and beside K3 faults of
+known size.  Needs one NVIDIA GPU.
+
+    python3 volume_drift.py [--seeds 0 1 2] [--fp32] [--out FILE.json]
+
+For each seed, ``chip_smoke.py``'s volume phase is run in bf16 (in fp32,
+``--no_bf16``, with ``--fp32``) with ``--attn flash``: the weights, the three synthetic contrasts and the
+CLI's ``--seed`` are all made from the seed (seed 0 is the smoke's own
+volume).  Each seed's volume is predicted
+
+- with every plain version forced (the reference of the comparison);
+- with every kernel (what the smoke holds to ``BF16_VOLUME_TOL``, or
+  in fp32 to ``SAMPLE_TOL["fp32"]``);
+- with K3 alone replaced by its plain version, so the difference from
+  the reference is K1's and K2's and the rest is K3's;
+- with K3 given a scale off by a factor 1 + eps (``FAULTS``): the kernel
+  as a K3 fault of that size would leave it.
+
+Each prints the max abs difference from the reference over the volume
+and the mean abs difference over the predicted slices, in the sampler's
+[-1, 1] units.  For each fault the script also prints whether the
+smoke's per-shape K3 check (``FLASH_TOL``) rejects it at (8, 4096, 256).
+The last line is a summary.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import sys
+import tempfile
+
+import chip_smoke as smoke
+
+FAULTS = (0.005, 0.02, 0.08)
+
+
+@contextlib.contextmanager
+def attention_as(fn):
+    """Run every ``AttnBlockpp`` flash attention through ``fn``."""
+    from mudiff_torch.nn import blocks
+
+    saved = blocks.flash_attn
+    blocks.flash_attn = fn
+    try:
+        yield
+    finally:
+        blocks.flash_attn = saved
+
+
+def scaled_kernel(eps: float):
+    from mudiff_torch.ops import flash_attn
+
+    return lambda q, k, v, scale: flash_attn(q, k, v, scale * (1.0 + eps))
+
+
+def per_shape_check(eps: float, dtype: str) -> dict:
+    """The smoke's K3 check at the volume's shape in ``dtype`` ("bf16" or
+    "fp32"), on a kernel whose scale is off by 1 + eps: max abs error and
+    whether it is rejected."""
+    import torch
+
+    from mudiff_torch.ops import flash_attn_plain
+
+    b, length, c = smoke.VOLUME_BATCH, 4096, 256
+    scale = float(c) ** -0.5
+    g = torch.Generator(smoke.DEVICE).manual_seed(smoke.SEED + 3)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = (2.0 * torch.randn((b, length, c), generator=g, device=smoke.DEVICE)).to(dt)
+    k, v = (torch.randn((b, length, c), generator=g, device=smoke.DEVICE).to(dt)
+            for _ in range(2))
+    got = scaled_kernel(eps)(q, k, v, scale).float()
+    want = flash_attn_plain(q, k, v, scale).float()
+    atol, rtol = smoke.FLASH_TOL[dtype]
+    err = (got - want).abs()
+    return {"max_abs_err": float(err.max()),
+            "rejected": bool((err > atol + rtol * want.abs()).any())}
+
+
+def seed_readings(cfg, seed: int, card: str, flags=()) -> dict:
+    import numpy as np
+    import torch
+
+    from mudiff_torch import build_sampler
+    from mudiff_torch.ops import flash_attn_plain
+
+    sampler = build_sampler(cfg, device=smoke.DEVICE,
+                            generator=torch.Generator().manual_seed(seed))
+    wgen = torch.Generator(smoke.DEVICE).manual_seed(seed)
+    smoke.randomize_(sampler.g1, wgen)
+    smoke.randomize_(sampler.g2, wgen)
+    extra = ("--seed", str(cfg.seed + seed), *flags)
+    mid = smoke.VOLUME_SHAPE[2] // 2
+    band = slice(mid - smoke.VOLUME_HALF, mid + smoke.VOLUME_HALF + 1)
+    variants = {"kernels": contextlib.nullcontext,
+                "K3 plain": lambda: attention_as(flash_attn_plain),
+                **{f"K3 scale x (1 + {eps})": (lambda eps=eps: attention_as(scaled_kernel(eps)))
+                   for eps in FAULTS}}
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        smoke.write_volume_inputs(workdir, sampler, seed + 40)
+        ref, _, _ = smoke.run_volume(cfg, workdir, "plain", extra, plain=True)
+        for label, context in variants.items():
+            with context():
+                vol, seconds, launches = smoke.run_volume(cfg, workdir, label, extra)
+            out[label] = {
+                "max_abs": smoke.volume_distance(vol, ref),
+                "mean_abs_slices": 2.0 * float(np.abs(vol - ref)[:, :, band].mean()),
+                "launches": launches, "run_s": seconds,
+            }
+            print(json.dumps({"card": card, "seed": seed, "variant": label, **out[label]}),
+                  flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    parser.add_argument("--fp32", action="store_true",
+                        help="serve in fp32 (--no_bf16) instead of bf16")
+    parser.add_argument("--out", help="also write every reading here")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("volume_drift: no CUDA device", file=sys.stderr)
+        return 2
+    from mudiff_torch import brats_recipe
+    from mudiff_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    card = smoke.card_line()
+    print(card, flush=True)
+    _build.build()
+    cfg = brats_recipe(num_channels_dae=smoke.NF, image_size=smoke.IMAGE)
+    dtype = "fp32" if args.fp32 else "bf16"
+    faults = {eps: per_shape_check(eps, dtype) for eps in (0.0, *FAULTS)}
+    print(json.dumps({"card": card, "dtype": dtype,
+                      "per_shape_check_at": [smoke.VOLUME_BATCH, 4096, 256],
+                      "tolerance": smoke.FLASH_TOL[dtype], "by_eps": faults}), flush=True)
+    flags = ("--no_bf16",) if args.fp32 else ()
+    readings = {seed: seed_readings(cfg, seed, card, flags) for seed in args.seeds}
+    summary = {label: [readings[s][label]["max_abs"] for s in args.seeds]
+               for label in readings[args.seeds[0]]}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "dtype": dtype, "per_shape": faults,
+                       "readings": readings}, f, indent=1)
+    print(json.dumps({"card": card, "dtype": dtype, "seeds": args.seeds,
+                      "max_abs_by_variant": summary}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
