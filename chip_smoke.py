@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out FILE.json]
 
@@ -14,8 +14,10 @@ ends the run with a non-zero exit code:
    non-trivial weights, each request a batch of 4 slices through the
    4-step bf16 sampler with bf16-score attention.  The kernels' launch
    counts are zeroed just before and read just after; each must equal
-   what the module structure says (K3 launches 0 times here), and a
-   kernel call that would record a graph must raise (no backward yet);
+   what the module structure says (K3 launches 0 times here).  A CUDA
+   call that records a graph runs through the kernels, forward and
+   backward; a second backward through K1 or K3 raises, through K2 it
+   runs the kernels;
 4. whole-volume prediction through the port's CLI
    (``mudiff_torch.cli.test_volume.main``, ``--bf16 --attn flash``) on
    three seeded synthetic 240x240x155 contrasts written as .nii.gz, with
@@ -27,22 +29,35 @@ ends the run with a non-zero exit code:
    same draws), and both again in fp32 (``--no_bf16``): the fp32 volumes
    within ``SAMPLE_TOL["fp32"]``, the bf16 ones within
    ``BF16_VOLUME_TOL`` (``volume_drift.py`` measures what sets it);
-6. at every distinct shape either path gave each kernel (and, for K3,
-   the nf=128 width and a ragged length), hold the kernel against its
-   plain PyTorch version (bf16 and fp32), and time the kernel, the plain
-   version and one library call computing the same function (cuDNN
-   conv, depthwise conv, conv-transpose, scaled_dot_product_attention)
-   with CUDA events; the bound is the larger of bytes / HBM rate and
-   operations / peak rate of the card;
-7. the whole sample with the plain versions forced, same weights and
+6. training: ``create_train_state`` + ``make_train_step`` at the same
+   recipe, batch 2, bf16, ``attn="flash"``, seeded non-trivial weights
+   (the critic too, off its zero-init head).  Four iterations on global
+   steps 0-3 (``lazy_reg`` 16: R1 on step 0), counted as in 3 against
+   ``kernel_launches_per_iteration``; finite losses, D, G1 and G2 changed,
+   ``att_conv`` unchanged.  Then one D (with R1) + G iteration's losses
+   and gradients through the kernels against the same iteration under
+   ``plain_kernels()`` (same weights, injected draws), in bf16 and fp32,
+   within ``TRAIN_TOL``; best-of-N times of an iteration with and
+   without R1 and of the D and G steps, training slices/s, peak memory,
+   and one iteration under torch.profiler;
+7. at every distinct shape any path gave each kernel (and, for K3 and
+   its backward, the nf=128 width and a ragged length), hold the kernel
+   against its plain PyTorch version (bf16 and fp32), and time the
+   kernel, the plain version and one library call computing the same
+   function (cuDNN conv, depthwise conv, conv-transpose,
+   scaled_dot_product_attention and its backward) with CUDA events; the
+   bound is the larger of bytes / HBM rate and operations / peak rate of
+   the card;
+8. the whole sample with the plain versions forced, same weights and
    injected noise: bf16 and fp32 differences against stated tolerances;
-8. best-of-N slices/s of one request, and one request under
+9. best-of-N slices/s of one request, and one request under
    torch.profiler (device time by kernel, the device's idle share), then
    one batch-8 sample of the volume phase's sampler (--attn flash) too;
-9. every kernel must have launched in 3 or 4; the kernels summed over
-   the volume phase's launches, then the ``kernels`` JSON line (K1 and K2
-   over the main path's launches, K3 over the volume phase's), then
-   ``{"ok": true, "device": ...}``.
+10. every kernel must have launched in 3, 4 or 6; the kernels summed
+   over the volume phase's and over the training phase's launches, then
+   the ``kernels`` JSON line (K1 and K2 over the main path's launches,
+   K3 over the volume phase's, K3's backward over the training
+   phase's), then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 ``mudiff_torch`` package is not beside the script.  ``--out`` also
@@ -75,6 +90,12 @@ VOLUME_BATCH = 8
 # K3 shapes held and timed beside those the volume phase gives: the
 # nf=128 width (C = 512) and a ragged length.
 FLASH_EXTRA_SHAPES = ((4, 4096, 512), (2, 1000, 256))
+# The training phase: the recipe's batch, four iterations (R1 on step 0
+# of lazy_reg 16).  K3's backward is also held and timed at the nf=128
+# width and a ragged length.
+TRAIN_BATCH = 2
+TRAIN_ITERS = 4
+FLASH_BWD_EXTRA_SHAPES = ((2, 4096, 512), (2, 1000, 256))
 
 # Tolerances, kernel vs plain version on the same inputs.  Both
 # accumulate in fp32; in bf16 they round the same fp32 sum once, so a
@@ -104,6 +125,22 @@ FLASH_TOL = {"bf16": (2e-2, 2e-2), "fp32": (1e-4, 1e-4)}
 # 0.085-0.136.  Finer K3 faults are the per-shape and fp32 checks' to
 # catch (PERF.md §6).
 BF16_VOLUME_TOL = 0.12
+# K3's backward vs its plain version, max |diff| <= tol * max |plain| per
+# output.  bf16: both round p and ds to bf16 before their products; an
+# entry whose fp32 value lies near a rounding boundary lands one bf16 ulp
+# (2^-8 relative) apart, and dk, dq sum such entries over 4096 rows.
+# fp32: only the order of the sums differs.
+FLASH_BWD_TOL = {"bf16": 2e-2, "fp32": 1e-4}
+# One D (R1) + G iteration through the kernels vs the same iteration with
+# the plain versions forced: (loss, relative; gradient, ||diff|| / ||g||).
+# fp32: summation order only.  bf16: K3 rounds p where its plain version
+# rounds the weights, one-ulp flips that 2 generators and 3 critic passes
+# carry into every gradient.  Tensors whose ||g|| is under 1e-6 of the
+# largest of their module are counted, not held: their exact gradient is
+# 0 or nearly (the key projection's bias, which softmax ignores; the
+# critic's last bias under R1 alone), so their relative error is noise.
+TRAIN_TOL = {"fp32": (1e-4, 1e-3), "bf16": (2e-2, 5e-2)}
+TINY_GRAD = 1e-6
 
 # Published dense peaks of the card (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 CUDA-core FLOP/s, device-memory bytes/s.
@@ -347,20 +384,138 @@ def flash_rows(shapes, peaks, card):
     return rows
 
 
+def sdpa_bwd_call(q, k, v, do, scale):
+    """The library's attention backward on (B, 1, L, C) views: the first
+    backend whose forward and backward take the call.  Returns (backend
+    name, a function that runs the backward only)."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = (t[:, None].detach().requires_grad_(True) for t in (q, k, v))
+    do4 = do[:, None]
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                out = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+                torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+        except RuntimeError:
+            continue
+
+        def call(out=out):
+            dq, dk, dv = torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+            return dq[:, 0], dk[:, 0], dv[:, 0]
+        return backend.name, call
+    raise AssertionError("no scaled_dot_product_attention backend takes the backward")
+
+
+def check_rel(what: str, got, want, tol: float) -> float:
+    """max |got - want| <= tol * max |want|; returns max |got - want|."""
+    import torch
+
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not bool(torch.isfinite(got).all()) or err > tol * scale:
+        raise AssertionError(f"{what}: max abs err {err:.3g} > {tol} x max |plain| {scale:.3g}")
+    return err
+
+
+def flash_bwd_rows(shapes, peaks, card):
+    """K3's backward kernels at each shape: checks, times, bounds.
+    ``shapes`` maps (B, L, C, dtype) to each kernel's launch counts
+    (``{"flash_attn_bwd_dkv": {path: n}, "flash_attn_bwd_dq": ...}``).
+    dkv must do 4 of the 5 products (s, dp, dv, dk), dq 3 (s, dp, dq);
+    the pair does 10 B L^2 C flops once s and dp are shared."""
+    import torch
+
+    from mudiff_torch.ops import (attn_di, flash_attn_bwd_dkv, flash_attn_bwd_dq,
+                                  flash_attn_plain, plain_kernels, row_stats_plain)
+
+    bf16_peak, fp32_peak, hbm = peaks
+    g = torch.Generator(DEVICE).manual_seed(SEED + 4)
+    rows = []
+    for (b, length, c, dtype), counts in sorted(shapes.items(), key=str):
+        scale = float(c) ** -0.5
+        q = 2.0 * torch.randn((b, length, c), generator=g, device=DEVICE)
+        k, v, do = (torch.randn((b, length, c), generator=g, device=DEVICE) for _ in range(3))
+        errs = {}
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            qd, kd, vd, dod = (t.to(dt) for t in (q, k, v, do))
+            stats = row_stats_plain(qd, kd, scale)
+            di = attn_di(flash_attn_plain(qd, kd, vd, scale), dod)
+            dk, dv = flash_attn_bwd_dkv(qd, kd, vd, dod, stats, di, scale)
+            dq = flash_attn_bwd_dq(qd, kd, vd, dod, stats, di, scale)
+            with plain_kernels():
+                pk, pv = flash_attn_bwd_dkv(qd, kd, vd, dod, stats, di, scale)
+                pq = flash_attn_bwd_dq(qd, kd, vd, dod, stats, di, scale)
+            tol = FLASH_BWD_TOL[tag]
+            what = f"{(b, length, c)} {tag}"
+            errs[tag] = {"dkv": max(check_rel(f"dk {what}", dk, pk, tol),
+                                    check_rel(f"dv {what}", dv, pv, tol)),
+                         "dq": check_rel(f"dq {what}", dq, pq, tol)}
+        # timed in the dtype the run gave this shape
+        qd, kd, vd, dod = (t.to(dtype) for t in (q, k, v, do))
+        stats = row_stats_plain(qd, kd, scale)
+        di = attn_di(flash_attn_plain(qd, kd, vd, scale), dod)
+        backend, library = sdpa_bwd_call(qd, kd, vd, dod, scale)
+        lq, lk, lv = library()
+        with plain_kernels():
+            pk, pv = flash_attn_bwd_dkv(qd, kd, vd, dod, stats, di, scale)
+            pq = flash_attn_bwd_dq(qd, kd, vd, dod, stats, di, scale)
+        for what, got, want in (("dq", lq, pq), ("dk", lk, pk), ("dv", lv, pv)):
+            check_rel(f"SDPA backward ({backend}) {what} {(b, length, c)}", got, want, 5e-2)
+        library_ms = time_ms(library)
+        size = qd.element_size()
+        peak = bf16_peak if size == 2 else fp32_peak
+        flop = 2.0 * b * length * length * c
+        elems = b * length * c
+        for name, products, outputs, fn in (
+                ("flash_attn_bwd_dkv", 4, 2, flash_attn_bwd_dkv),
+                ("flash_attn_bwd_dq", 3, 1, flash_attn_bwd_dq)):
+            def plain_fn(fn=fn):
+                with plain_kernels():
+                    return fn(qd, kd, vd, dod, stats, di, scale)
+            rows.append({
+                "kernel": name, "shape": [b, length, c], "dtype": str(dtype)[6:],
+                **counts[name], "err_bf16": errs["bf16"][name[15:]],
+                "err_fp32": errs["fp32"][name[15:]],
+                "ms": time_ms(lambda fn=fn: fn(qd, kd, vd, dod, stats, di, scale)),
+                "plain_ms": time_ms(plain_fn),
+                "library_ms": library_ms,
+                "library": f"scaled_dot_product_attention backward ({backend}), dq dk dv",
+                "flop_ms": products * flop / peak * 1e3,
+                "byte_ms": (size * elems * (4 + outputs) + 4.0 * 3 * b * length) / hbm * 1e3,
+            })
+            print(json.dumps({"card": card, **rows[-1]}), flush=True)
+    return rows
+
+
 SOURCES = {
     "conv3x3": ("mudiff_torch/csrc/conv3x3_kernel.cu", "mudiff_tpu/ops/pallas_conv.py:375"),
     "fir_down2": ("mudiff_torch/csrc/fir_kernels.cu", "mudiff_tpu/ops/pallas_fir.py:271"),
     "fir_up2": ("mudiff_torch/csrc/fir_kernels.cu", "mudiff_tpu/ops/pallas_fir.py:292"),
     # a stock Pallas kernel outside the repo, named by its call site
     "flash_attn": ("mudiff_torch/csrc/flash_attn_kernel.cu", "mudiff_tpu/nn/blocks.py:211"),
+    # its backward, in the jax package that the call site imports
+    "flash_attn_bwd_dkv": ("mudiff_torch/csrc/flash_attn_bwd_kernel.cu",
+                           "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
+    "flash_attn_bwd_dq": ("mudiff_torch/csrc/flash_attn_bwd_kernel.cu",
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
 }
 
 
-# The launch counts of each row: the main path's run and the volume
-# phase's counted run.  The ``kernels`` line sums each kernel over the
-# main path's launches, except K3, which only the volume phase runs.
-PATHS = ("launches", "volume_launches")
-COUNTED_IN = {"flash_attn": "volume_launches"}
+# The launch counts of each row: the main path's run, the volume phase's
+# and the training phase's counted runs.  The ``kernels`` line sums each
+# kernel over the main path's launches, except K3, which the serving path
+# runs only in the volume phase, and K3's backward, which only training
+# runs.
+PATHS = ("launches", "volume_launches", "train_launches")
+COUNTED_IN = {"flash_attn": "volume_launches", "flash_attn_bwd_dkv": "train_launches",
+              "flash_attn_bwd_dq": "train_launches"}
 
 
 def shape_counts(logs: dict) -> dict:
@@ -376,6 +531,9 @@ def shape_counts(logs: dict) -> dict:
 
 def run_of(path: str) -> str:
     """The run whose launches the count ``path`` holds."""
+    if path == "train_launches":
+        return (f"the training phase's run: {TRAIN_ITERS} iterations (D step, R1 on the "
+                f"first, G step) at batch {TRAIN_BATCH}, bf16, attn flash")
     if path == "volume_launches":
         n = 2 * VOLUME_HALF + 1
         return (f"the volume phase's run: {n} slices of a {VOLUME_SHAPE} volume in "
@@ -412,24 +570,38 @@ def kernel_summary(name, rows, launches, path=None):
     }
 
 
-def refuses_grad(device) -> None:
-    """The kernels have no backward yet: a CUDA call that would record a
-    graph must raise instead of returning a result with no gradient."""
+def grad_runs_through_kernels(device) -> dict:
+    """A CUDA call that records a graph runs through the kernels, forward
+    and backward; a second backward through K1 or K3 raises (they are
+    once differentiable); one through K2 runs the kernels.  Returns the
+    launch counts of the calls."""
     import torch
 
-    from mudiff_torch.ops import conv3x3, flash_attn
+    from mudiff_torch import ops
 
-    x = torch.randn((1, 4, 4, 8), device=device)
-    w = torch.randn((3, 3, 8, 8), device=device, requires_grad=True)
-    q = torch.randn((1, 16, 8), device=device, requires_grad=True)
-    calls = {"conv3x3": lambda: conv3x3(x, w), "flash_attn": lambda: flash_attn(q, q, q, 0.5)}
-    for name, call in calls.items():
-        with torch.enable_grad():
-            try:
-                call()
-            except RuntimeError:
-                continue
-        raise AssertionError(f"{name} launched on a tensor that requires grad")
+    g = torch.Generator(device).manual_seed(SEED + 5)
+    x = torch.randn((1, 8, 8, 8), generator=g, device=device, requires_grad=True)
+    w = torch.randn((3, 3, 8, 8), generator=g, device=device)
+    q = torch.randn((1, 64, 8), generator=g, device=device, requires_grad=True)
+    ops.reset_launch_counts()
+    for out, inp in ((ops.conv3x3(x, w), x), (ops.flash_attn(q, q, q, 0.5), q)):
+        (gx,) = torch.autograd.grad(torch.tanh(out).sum(), inp, create_graph=True)
+        try:
+            gx.square().sum().backward()
+        except RuntimeError as err:
+            if "once_differentiable" not in str(err):
+                raise
+        else:
+            raise AssertionError("a second backward through K1 or K3 did not raise")
+    (gx,) = torch.autograd.grad(torch.tanh(ops.fir_down2(x)).sum(), x, create_graph=True)
+    (gxx,) = torch.autograd.grad(gx.square().sum(), x)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {"conv3x3": 2, "fir_down2": 2, "fir_up2": 2, "flash_attn": 1,
+            "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
+    if counts != want or not bool(torch.isfinite(gxx).all()):
+        raise AssertionError(f"graph-recording calls launched {counts}, want {want}")
+    return counts
 
 
 def synthetic_contrasts(seed: int):
@@ -598,6 +770,210 @@ def volume_phases(cfg, sampler, card) -> dict:
     return {"launches": counts["bf16"], "log": log, "seconds": seconds, "diffs": diffs}
 
 
+def iteration_grads(state, batch, draws, plain: bool):
+    """One D (R1) + G iteration's losses and gradients, before the
+    optimizer, through the kernels or with the plain versions forced;
+    and the launch counts it made."""
+    import torch
+
+    from mudiff_torch import ops
+    from mudiff_torch.train import d_loss_and_grads, g_loss_and_grads
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with ops.plain_kernels() if plain else contextlib.nullcontext():
+        grads_d, aux_d = d_loss_and_grads(state, batch, draws[0], with_r1=True)
+        (grads_g1, grads_g2), aux_g = g_loss_and_grads(state, batch, draws[1])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        grads_r1 = r1_grads(state, batch, draws[0])
+    torch.cuda.synchronize()
+    names = [f"{m}.{n}" for m in ("d", "g1", "g2")
+             for n, _ in getattr(state, m).named_parameters()]
+    names += [f"R1 alone: d.{n}" for n, _ in state.d.named_parameters()]
+    losses = {k: float(v) for k, v in {**aux_d, **aux_g}.items()}
+    return losses, dict(zip(names, grads_d + grads_g1 + grads_g2 + grads_r1)), counts
+
+
+def r1_grads(state, batch, draws):
+    """The gradient of the R1 penalty alone to D's parameters: in the
+    whole D step it is small beside the logit losses', so a fault in the
+    double backward (the FIR kernels' adjoints of adjoints) would hide
+    there."""
+    import torch
+
+    from mudiff_torch.diffusion import q_sample_pairs
+
+    real = batch[3]
+    x_t, x_tp1 = q_sample_pairs(state.coeff, real, draws.t, draws.noise_t, draws.noise_tp1)
+    x_t.requires_grad_(True)
+    logit, _ = state.d(x_t, draws.t, x_tp1)
+    (gx,) = torch.autograd.grad(logit.sum(), x_t, create_graph=True)
+    penalty = gx.reshape(real.shape[0], -1).square().sum(dim=1).mean()
+    params = list(state.d.parameters())
+    grads = torch.autograd.grad(penalty, params, allow_unused=True)  # the last bias: none
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def compare_iteration(tag: str, state, batch, draws) -> dict:
+    """Kernels vs plain versions on one iteration, held to TRAIN_TOL[tag]."""
+    loss_tol, grad_tol = TRAIN_TOL[tag]
+    losses, grads, counts = iteration_grads(state, batch, draws, plain=False)
+    p_losses, p_grads, p_counts = iteration_grads(state, batch, draws, plain=True)
+    want = state.kernel_launches_per_iteration(with_r1=True)
+    if counts != want or any(p_counts.values()):
+        raise AssertionError(f"{tag} iteration: launches {counts} with kernels (want {want}), "
+                             f"{p_counts} with plain versions forced")
+    loss_err = {k: abs(losses[k] - v) / max(abs(v), 1e-12) for k, v in p_losses.items()}
+    norms = {n: float(g.float().norm()) for n, g in p_grads.items()}
+    top = {}  # the largest norm of each group: d, g1, g2, R1 alone
+    for n, v in norms.items():
+        top[n.split(".")[0]] = max(top.get(n.split(".")[0], 0.0), v)
+    grad_err, tiny = {}, []
+    for n, g in grads.items():
+        if norms[n] <= TINY_GRAD * top[n.split(".")[0]]:
+            tiny.append(n)
+            continue
+        if not bool(torch_isfinite(g)):
+            raise AssertionError(f"{tag} iteration: gradient of {n} is not finite")
+        grad_err[n] = float((g.float() - p_grads[n].float()).norm()) / max(norms[n], 1e-30)
+    worst = max(grad_err, key=grad_err.get)
+    result = {"tag": tag, "losses_kernels": losses, "losses_plain": p_losses,
+              "max_loss_rel_err": max(loss_err.values()),
+              "max_grad_rel_err": grad_err[worst], "worst_tensor": worst,
+              "tensors_held": len(grad_err), "tensors_below_tiny": len(tiny),
+              "median_grad_rel_err": sorted(grad_err.values())[len(grad_err) // 2],
+              "worst_five": sorted(grad_err.items(), key=lambda kv: -kv[1])[:5],
+              "below_tiny": tiny,
+              "tolerance": {"loss": loss_tol, "grad": grad_tol}}
+    print(json.dumps({"train_kernels_vs_plain": result}), flush=True)
+    if result["max_loss_rel_err"] > loss_tol or grad_err[worst] > grad_tol:
+        raise AssertionError(f"{tag} iteration, kernels vs plain: loss rel err "
+                             f"{result['max_loss_rel_err']:.3g}, grad rel err "
+                             f"{grad_err[worst]:.3g} ({worst}) beyond {TRAIN_TOL[tag]}")
+    return result
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def best_of(fn, n: int) -> float:
+    """Least wall seconds of ``n`` calls, each ending in a synchronize."""
+    import torch
+
+    best = math.inf
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t)
+    return best
+
+
+def training_phase(cfg, card) -> dict:
+    """Phase 6: the adversarial training iteration at full width."""
+    import torch
+
+    from mudiff_torch import ops
+    from mudiff_torch.train import (TrainDraws, create_train_state, make_d_step,
+                                    make_g_step, make_train_step)
+
+    state = create_train_state(cfg, seed=SEED, steps_per_epoch=1000, device=DEVICE,
+                               attn="flash")
+    wgen = torch.Generator(DEVICE).manual_seed(SEED + 50)
+    for module in (state.g1, state.g2, state.d):
+        randomize_(module, wgen)
+    bgen = torch.Generator(DEVICE).manual_seed(SEED + 51)
+    shape = (TRAIN_BATCH, IMAGE, IMAGE, 1)
+    batch = [torch.randn(shape, generator=bgen, device=DEVICE).tanh() for _ in range(4)]
+    before = {m: {k: v.detach().clone() for k, v in getattr(state, m).state_dict().items()}
+              for m in ("g1", "g2", "d", "att_conv")}
+    train_step = make_train_step(cfg)
+    tgen = torch.Generator(DEVICE).manual_seed(SEED + 52)
+
+    # -- counted: global steps 0..TRAIN_ITERS-1, R1 on the lazy schedule
+    log, seconds, metrics = [], [], []
+    expected = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with ops.record_calls(log):
+        for _ in range(TRAIN_ITERS):
+            with_r1 = cfg.lazy_reg is None or state.step % cfg.lazy_reg == 0
+            for k, v in state.kernel_launches_per_iteration(with_r1).items():
+                expected[k] = expected.get(k, 0) + v
+            t = time.perf_counter()
+            m = train_step(state, batch, generator=tgen)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            metrics.append({k: float(v) for k, v in m.items()} | {"R1_step": with_r1})
+    launches = ops.launch_counts()
+    print(json.dumps({"phase": "training", "launch_counts": launches, "expected": expected,
+                      "iteration_s": seconds, "losses": metrics}), flush=True)
+    if launches != expected:
+        raise AssertionError(f"training launches {launches} != structure's {expected}")
+    if not all(math.isfinite(v) for m in metrics for k, v in m.items() if k != "R1_step"):
+        raise AssertionError("a training loss is not finite")
+    if not metrics[0]["R1"] > 0.0:
+        raise AssertionError(f"R1 on step 0 is {metrics[0]['R1']}")
+    for m in ("g1", "g2", "d"):
+        after = getattr(state, m).state_dict()
+        if not all(torch_isfinite(v) for v in after.values()):
+            raise AssertionError(f"{m}: a parameter is not finite after training")
+        if all(torch.equal(before[m][k], after[k]) for k in after):
+            raise AssertionError(f"{m}: no parameter changed in {TRAIN_ITERS} iterations")
+    for k, v in state.att_conv.state_dict().items():
+        if not torch.equal(v, before["att_conv"][k]):
+            raise AssertionError("att_conv changed: it must stay frozen")
+    del before
+
+    # -- one iteration, kernels vs plain versions, bf16 and fp32 (TF32 off)
+    dgen = torch.Generator(DEVICE).manual_seed(SEED + 53)
+    draws = tuple(TrainDraws.draw(cfg, batch[3], dgen) for _ in range(2))
+    compared = [compare_iteration("bf16", state, batch, draws)]
+    state32 = create_train_state(cfg.replace(use_bf16=False), seed=SEED, device=DEVICE,
+                                 attn="flash")
+    for m in ("g1", "g2", "d", "att_conv"):
+        getattr(state32, m).load_state_dict(getattr(state, m).state_dict())
+    compared.append(compare_iteration("fp32", state32, batch, draws))
+    del state32
+
+    # -- times, memory, profile
+    d_step, g_step = make_d_step(), make_g_step()
+    times = {
+        "iteration_r1": best_of(lambda: train_step(state, batch, tgen, with_r1=True), 3),
+        "iteration_no_r1": best_of(lambda: train_step(state, batch, tgen, with_r1=False), 3),
+        "d_step_r1": best_of(lambda: d_step(state, batch, draws[0], True), 3),
+        "d_step_no_r1": best_of(lambda: d_step(state, batch, draws[0], False), 3),
+        "g_step": best_of(lambda: g_step(state, batch, draws[1]), 3),
+    }
+    lazy = cfg.lazy_reg or 1
+    mean_s = ((lazy - 1) * times["iteration_no_r1"] + times["iteration_r1"]) / lazy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(state, batch, tgen, with_r1=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_call(lambda: train_step(state, batch, tgen, with_r1=True))
+    # the profiler slows the host; the device's share of an unprofiled
+    # iteration is its busy time over the best unprofiled wall time
+    profile["idle_share_of_best_iteration"] = (
+        1.0 - profile["device_busy_ms"] / (1e3 * times["iteration_r1"]))
+    print(json.dumps({
+        "card": card, "phase": "training", "nf": cfg.num_channels_dae, "image": IMAGE,
+        "batch": TRAIN_BATCH, "dtype": "bf16", "attn": "flash", "lazy_reg": cfg.lazy_reg,
+        "best_s": times, "slices_per_s_no_r1": TRAIN_BATCH / times["iteration_no_r1"],
+        "slices_per_s_r1": TRAIN_BATCH / times["iteration_r1"],
+        "slices_per_s_lazy_mix": TRAIN_BATCH / mean_s,
+        "max_memory_allocated_bytes": peak,
+        "profile_one_iteration_r1": profile}), flush=True)
+    return {"launches": launches, "log": log, "losses": metrics, "compared": compared,
+            "times": times, "peak_bytes": peak, "profile": profile}
+
+
 # Device kernels of a request, grouped by the first group one of whose
 # marks occurs in the kernel's lower-cased name.
 PROFILE_GROUPS = (
@@ -605,18 +981,27 @@ PROFILE_GROUPS = (
     ("K2a fir_down2", ("fir_down2_kernel",)),
     ("K2b fir_up2", ("fir_up2_kernel",)),
     ("K3 flash_attn", ("flash_attn_kernel",)),
+    ("K3 bwd dkv", ("flash_attn_bwd_dkv_kernel",)),
+    ("K3 bwd dq", ("flash_attn_bwd_dq_kernel",)),
+    ("optimizer (Adam, EMA)", ("adam", "multi_tensor", "foreach")),
     ("copies and casts", ("copy", "memcpy", "memset")),
     ("reductions (GroupNorm statistics, means)", ("reduce_kernel",)),
     ("softmax", ("softmax",)),
-    ("cuDNN / native conv (pyramid)", ("fprop", "conv", "cudnn")),
+    ("cuDNN / native conv (pyramid, critic, K1's dw)",
+     ("fprop", "wgrad", "dgrad", "conv", "cudnn", "xmma")),
     ("matmul (attention, dense, 1x1)", ("gemm", "cutlass", "nvjet")),
     ("elementwise", ("elementwise",)),
 )
 
 
 def profile_request(sampler, conds, generator) -> dict:
-    """One request under torch.profiler: device time by kernel and the
-    device's idle share of the request's wall time."""
+    """One request under torch.profiler (``profile_call``)."""
+    return profile_call(lambda: sampler(*conds, generator=generator))
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: device time by kernel and
+    the device's idle share of the call's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -624,12 +1009,15 @@ def profile_request(sampler, conds, generator) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        sampler(*conds, generator=generator)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = {}
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        # device kernels only: a user range on the device's timeline (the
+        # optimizer's "Optimizer.step#Adam.step") would count its kernels twice
+        if (evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False)
+                and not evt.name.startswith("Optimizer.")):
             us = evt.time_range.end - evt.time_range.start
             by_name[evt.name] = by_name.get(evt.name, 0.0) + us / 1e3
     by_group = {}
@@ -709,21 +1097,31 @@ def main(argv=None) -> int:
         if float(out.std()) < 1e-2:
             raise AssertionError("sample is near constant")
 
-    refuses_grad(DEVICE)
+    print(json.dumps({"graph_recording_calls": grad_runs_through_kernels(DEVICE)}), flush=True)
 
     # -- whole-volume prediction through the CLI, K3 on the path --------------
     volume = volume_phases(cfg, sampler, card)
 
-    counts = shape_counts({"launches": log, "volume_launches": volume["log"]})
+    # -- the training iteration, K3's backward on the path ---------------------
+    train = training_phase(cfg, card)
+
+    counts = shape_counts({"launches": log, "volume_launches": volume["log"],
+                           "train_launches": train["log"]})
     fir_shapes = {(kname, *key): c for kname in ("fir_down2", "fir_up2")
                   for key, c in counts[kname].items()}
     flash_shapes = {(*shape, torch.bfloat16): dict.fromkeys(PATHS, 0)
                     for shape in FLASH_EXTRA_SHAPES}
     flash_shapes.update(counts["flash_attn"])
+    bwd_names = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")
+    bwd_shapes = {(*shape, torch.bfloat16): {n: dict.fromkeys(PATHS, 0) for n in bwd_names}
+                  for shape in FLASH_BWD_EXTRA_SHAPES}
+    for n in bwd_names:
+        for key, c in counts[n].items():
+            bwd_shapes.setdefault(key, {m: dict.fromkeys(PATHS, 0) for m in bwd_names})[n] = c
 
     # -- each kernel against its plain version, timed ------------------------
     rows = (conv_rows(counts["conv3x3"], peaks, card) + fir_rows(fir_shapes, peaks, card)
-            + flash_rows(flash_shapes, peaks, card))
+            + flash_rows(flash_shapes, peaks, card) + flash_bwd_rows(bwd_shapes, peaks, card))
 
     # -- the whole sample, kernels vs plain versions -------------------------
     zgen = torch.Generator(DEVICE).manual_seed(SEED + 30)
@@ -786,21 +1184,26 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "profile_one_volume_batch":
                       profile_request(flash_sampler, vconds, ngen)}), flush=True)
 
-    # every kernel ran on a path: the main path or the volume phase
-    runs = {"launches": launches, "volume_launches": volume["launches"]}
+    # every kernel ran on a path: the main path, the volume or the training phase
+    runs = {"launches": launches, "volume_launches": volume["launches"],
+            "train_launches": train["launches"]}
     counted = {k: runs[COUNTED_IN.get(k, "launches")][k] for k in ops.KERNEL_WRAPPERS}
     idle = [k for k, n in counted.items() if n <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on a path: {idle}")
     on_volume = [kernel_summary(k, rows, volume["launches"][k], "volume_launches")
-                 for k in ops.KERNEL_WRAPPERS]
+                 for k in ops.KERNEL_WRAPPERS if volume["launches"][k]]
     print(json.dumps({"card": card, "volume_phase_kernels": on_volume}), flush=True)
+    on_train = [kernel_summary(k, rows, train["launches"][k], "train_launches")
+                for k in ops.KERNEL_WRAPPERS]
+    print(json.dumps({"card": card, "training_phase_kernels": on_train}), flush=True)
     kernels = [kernel_summary(k, rows, counted[k]) for k in ops.KERNEL_WRAPPERS]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "rows": rows, "kernels": kernels,
-                       "volume_phase_kernels": on_volume,
+                       "volume_phase_kernels": on_volume, "training_phase_kernels": on_train,
                        "volume": {k: v for k, v in volume.items() if k != "log"},
+                       "training": {k: v for k, v in train.items() if k != "log"},
                        "nvcc": {k: v["log"] for k, v in built.items()}}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

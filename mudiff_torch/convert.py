@@ -1,9 +1,12 @@
-"""Convert the JAX package's generator parameters to the port's state_dict.
+"""Convert the JAX package's parameters to the port's state_dicts.
 
 ``params_from_flax(tree)`` takes the flax ``params`` tree of an
-``NCSNppGenerator`` as nested dicts of numpy arrays (what
-``jax.tree_util.tree_map(np.asarray, params)`` gives) and returns a
-``state_dict`` for ``mudiff_torch.models.NCSNppGenerator``.  This is the
+``NCSNppGenerator`` or a ``DiscriminatorLarge`` as nested dicts of numpy
+arrays (what ``jax.tree_util.tree_map(np.asarray, params)`` gives) and
+returns a ``state_dict`` for the port's module of the same name
+(the critic's ``StyleConv2d``s take the same ``conv`` rules).
+``train_state_from_flax`` does G1, G2, the critic and the frozen
+``att_conv`` of a whole JAX train state.  This is the
 one place where the two packages' weight layouts are written down:
 
 =====================================  =======================  ==============
@@ -86,6 +89,31 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two flax leaves map to {key}")
         state[key] = torch.from_numpy(value)
     return state
+
+
+def att_conv_from_flax(att_conv: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX state's frozen ``att_conv`` ({w: (1,1,C,1), b: (1,)}) ->
+    the ``AttConv`` buffers (weight (1, C), bias (1,))."""
+    w = np.asarray(att_conv["w"], np.float32)
+    if w.ndim != 4 or w.shape[:2] != (1, 1) or w.shape[-1] != 1:
+        raise ValueError(f"att_conv w must be (1, 1, C, 1), got {w.shape}")
+    return {"weight": torch.from_numpy(np.ascontiguousarray(w[0, 0].T)),
+            "bias": torch.from_numpy(np.asarray(att_conv["b"], np.float32).reshape(1))}
+
+
+def train_state_from_flax(state_np: Any) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX ``MutualTrainState`` turned to numpy (its fields as
+    attributes or keys) -> ``{"g1", "g2", "d", "att_conv"}`` state_dicts
+    for ``TrainState.load_flax``.  The critic's params follow the same
+    leaf rules as the generators'.  The optax moments are not carried."""
+
+    def field(name):
+        return state_np[name] if isinstance(state_np, Mapping) else getattr(state_np, name)
+
+    return {"g1": params_from_flax(field("params_g1")),
+            "g2": params_from_flax(field("params_g2")),
+            "d": params_from_flax(field("params_d")),
+            "att_conv": att_conv_from_flax(field("att_conv"))}
 
 
 def export_generators(params_g1: Mapping[str, Any], params_g2: Mapping[str, Any],

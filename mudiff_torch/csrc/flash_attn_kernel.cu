@@ -9,7 +9,11 @@
 // with running max m and sum l in fp32, p = exp(s - m) rounded to the
 // input dtype, p.v accumulated in fp32, the output rounded to the input
 // dtype.  Non-causal, one head, no mask or segment ids.  q, k, v and out
-// are (B, L, C) contiguous.
+// are (B, L, C) contiguous.  When m_out and l_out are not null, each row's
+// final max m and sum l = sum exp(s - m) go there as (B, L) fp32: the
+// statistics the backward (flash_attn_bwd_kernel.cu) recomputes p from,
+// as the TPU kernel saves l and m as residuals.  With them null the
+// output is the same bit for bit.
 //
 // What bounds it on an H100: operations.  Per batch row it does 4 L^2 C
 // flops on 4 L C elements, i.e. L = 4096 flops per element moved, far
@@ -127,7 +131,8 @@ constexpr size_t smem_floats() {
 template <typename T, int CMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out, int L, int C,
+                  const T* __restrict__ v, T* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out, int L, int C,
                   float scale) {
   constexpr int BQ = Tile<CMAX>::BQ;
   constexpr int CPT = Tile<CMAX>::CPT;
@@ -262,7 +267,14 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (kg == 0) {
 #pragma unroll
-    for (int r = 0; r < SR; ++r) l_s[sg * SR + r] = l_run[r];
+    for (int r = 0; r < SR; ++r) {
+      l_s[sg * SR + r] = l_run[r];
+      const int row = q0 + sg * SR + r;
+      if (m_out != nullptr && row < L) {
+        m_out[(size_t)blockIdx.y * L + row] = m_run[r];
+        l_out[(size_t)blockIdx.y * L + row] = l_run[r];
+      }
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -282,8 +294,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int CMAX>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch,
-                   int L, int C, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* m,
+                   float* l, int batch, int L, int C, float scale, cudaStream_t stream) {
   constexpr int BQ = Tile<CMAX>::BQ;
   constexpr size_t smem = smem_floats<CMAX>() * sizeof(float);
   static_assert(smem <= 232448, "tile exceeds the 227 KB a block may use");
@@ -294,34 +306,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   const dim3 grid((L + BQ - 1) / BQ, batch);
   flash_attn_kernel<T, CMAX><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), L, C, scale);
+      static_cast<T*>(out), m, l, L, C, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_for_c(const void* q, const void* k, const void* v, void* out,
-                         int batch, int L, int C, float scale, cudaStream_t s) {
-  if (C <= 64) return launch<T, 64>(q, k, v, out, batch, L, C, scale, s);
-  if (C <= 128) return launch<T, 128>(q, k, v, out, batch, L, C, scale, s);
-  if (C <= 256) return launch<T, 256>(q, k, v, out, batch, L, C, scale, s);
-  return launch<T, 512>(q, k, v, out, batch, L, C, scale, s);
+cudaError_t launch_for_c(const void* q, const void* k, const void* v, void* out, float* m,
+                         float* l, int batch, int L, int C, float scale, cudaStream_t s) {
+  if (C <= 64) return launch<T, 64>(q, k, v, out, m, l, batch, L, C, scale, s);
+  if (C <= 128) return launch<T, 128>(q, k, v, out, m, l, batch, L, C, scale, s);
+  if (C <= 256) return launch<T, 256>(q, k, v, out, m, l, batch, L, C, scale, s);
+  return launch<T, 512>(q, k, v, out, m, l, batch, L, C, scale, s);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16.  q, k, v, out (B, L, C) in that
 // dtype, contiguous, 8-byte aligned (16 for float32); C % 4 == 0 and
-// C <= 512.  Launches on `stream` and returns the cudaError_t of the launch.
+// C <= 512.  m and l: both null, or both (B, L) float32 for the row
+// statistics.  Launches on `stream` and returns the cudaError_t of the launch.
 extern "C" int mudiff_flash_attn(const void* q, const void* k, const void* v, void* out,
-                                 int batch, int L, int C, float scale, int dtype,
-                                 void* stream) {
-  if (batch <= 0 || batch > 65535 || L <= 0 || C <= 0 || C > 512 || C % 4 != 0)
+                                 float* m, float* l, int batch, int L, int C, float scale,
+                                 int dtype, void* stream) {
+  if (batch <= 0 || batch > 65535 || L <= 0 || C <= 0 || C > 512 || C % 4 != 0 ||
+      (m == nullptr) != (l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_for_c<float>(q, k, v, out, batch, L, C, scale, s));
-    case 1: return static_cast<int>(launch_for_c<__nv_bfloat16>(q, k, v, out, batch, L, C, scale, s));
-    case 2: return static_cast<int>(launch_for_c<__half>(q, k, v, out, batch, L, C, scale, s));
+    case 0: return static_cast<int>(launch_for_c<float>(q, k, v, out, m, l, batch, L, C, scale, s));
+    case 1: return static_cast<int>(launch_for_c<__nv_bfloat16>(q, k, v, out, m, l, batch, L, C, scale, s));
+    case 2: return static_cast<int>(launch_for_c<__half>(q, k, v, out, m, l, batch, L, C, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,9 @@
-"""Posterior sampling and the T-step reverse sampler.
+"""Forward diffusion, posterior sampling and the T-step reverse sampler.
 
-The port of ``mudiff_tpu/diffusion/sampling.py:25-186``.  The JAX
+The port of ``mudiff_tpu/diffusion/sampling.py:25-186``.  The training
+helpers ``q_sample``, ``q_sample_pairs`` and ``sample_posterior`` take
+their noise as arguments (``train/steps.py`` draws it from a
+``torch.Generator`` or injects it).  The JAX
 sampler is one ``lax.scan``; here it is a Python loop over
 ``t = T-1 ... 0``.  Randomness comes from an explicit
 ``torch.Generator`` in the JAX order (per step: first ``z`` of shape
@@ -16,13 +19,35 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from mudiff_torch.diffusion.schedule import PosteriorCoefficients
+from mudiff_torch.diffusion.schedule import DiffusionCoefficients, PosteriorCoefficients
 
 
 def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Gather table[t] and reshape to broadcast over an ndim-rank batch."""
     out = table[t]
     return out.reshape(out.shape[0], *([1] * (ndim - 1)))
+
+
+def q_sample(coeff: DiffusionCoefficients, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Diffuse x_0 -> x_t, t == 0 meaning one step applied (reference
+    engine/train.py:256-266).  ``coeff`` holds tensors (``as_tensors``)."""
+    nd = x_start.ndim
+    return (extract(coeff.a_s_cum, t, nd) * x_start
+            + extract(coeff.sigmas_cum, t, nd) * noise)
+
+
+def q_sample_pairs(coeff: DiffusionCoefficients, x_start: torch.Tensor, t: torch.Tensor,
+                   noise_t: torch.Tensor, noise_tp1: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training pair (x_t, x_{t+1}) (reference engine/train.py:269-281):
+    x_t from its own draw ``noise_t``, x_{t+1} = a_s[t+1] x_t +
+    sigmas[t+1] ``noise_tp1``.  The JAX package draws ``noise_tp1`` from
+    the first and ``noise_t`` from the second half of its split key."""
+    nd = x_start.ndim
+    x_t = q_sample(coeff, x_start, t, noise_t)
+    x_tp1 = extract(coeff.a_s, t + 1, nd) * x_t + extract(coeff.sigmas, t + 1, nd) * noise_tp1
+    return x_t, x_tp1
 
 
 def _posterior_mean(post, x_0, x_t, t):
@@ -40,6 +65,12 @@ def _add_posterior_noise(post, mean, x_t, t, noise):
         t.shape[0], *([1] * (nd - 1))
     )
     return mean + nonzero * torch.exp(0.5 * log_var) * noise
+
+
+def sample_posterior(post: PosteriorCoefficients, x_0: torch.Tensor, x_t: torch.Tensor,
+                     t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """One sample of q(x_{t-1} | x_0, x_t) (reference engine/train.py:310-331)."""
+    return _add_posterior_noise(post, _posterior_mean(post, x_0, x_t, t), x_t, t, noise)
 
 
 def sample_posterior_combine(

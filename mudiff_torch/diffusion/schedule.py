@@ -5,7 +5,7 @@ variances are computed in float64, betas are cast to float32 and every
 derived table is computed in float32 from the cast betas
 (reference: engine/train.py:221-243).  The tables stay numpy arrays so
 that they equal the JAX package's bit for bit; ``as_tensors`` moves them
-to a device once for the sampler.
+to a device once for the sampler or the train steps.
 """
 
 from __future__ import annotations
@@ -51,6 +51,49 @@ def get_sigma_schedule(
     sigmas = betas ** 0.5
     a_s = np.sqrt(1.0 - betas)
     return sigmas, a_s, betas
+
+
+class DiffusionCoefficients(NamedTuple):
+    """Forward-process tables of length T+1 (reference
+    engine/train.py:246-253)."""
+
+    sigmas: np.ndarray
+    a_s: np.ndarray
+    a_s_cum: np.ndarray
+    sigmas_cum: np.ndarray
+    a_s_prev: np.ndarray
+
+    @classmethod
+    def create(
+        cls,
+        num_timesteps: int,
+        beta_min: float,
+        beta_max: float,
+        use_geometric: bool = False,
+    ) -> "DiffusionCoefficients":
+        sigmas, a_s, _ = get_sigma_schedule(
+            num_timesteps, beta_min, beta_max, use_geometric
+        )
+        a_s_cum = np.cumprod(a_s)
+        sigmas_cum = np.sqrt(1.0 - a_s_cum ** 2)
+        a_s_prev = a_s.copy()
+        a_s_prev[-1] = 1.0
+        return cls(sigmas=sigmas, a_s=a_s, a_s_cum=a_s_cum,
+                   sigmas_cum=sigmas_cum, a_s_prev=a_s_prev)
+
+    @classmethod
+    def from_config(cls, config) -> "DiffusionCoefficients":
+        return cls.create(
+            config.num_timesteps, config.beta_min, config.beta_max,
+            config.use_geometric,
+        )
+
+    def as_tensors(self, device) -> "DiffusionCoefficients":
+        """The same tables as float32 tensors on ``device``."""
+        return DiffusionCoefficients(
+            *(torch.as_tensor(np.asarray(a, np.float32), device=device)
+              for a in self)
+        )
 
 
 class PosteriorCoefficients(NamedTuple):

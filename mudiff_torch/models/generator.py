@@ -46,6 +46,7 @@ from mudiff_torch.nn.fused_stems import (
 )
 from mudiff_torch.nn.initializers import default_init
 from mudiff_torch.nn.layers import Conv3x3, Dense, get_timestep_embedding, pixel_norm
+from mudiff_torch.ops import KERNEL_WRAPPERS
 
 _SQRT2 = math.sqrt(2.0)
 _GATES = ("feat_att1_c12", "feat_att2_c12", "feat_att1_c23",
@@ -215,8 +216,9 @@ class NCSNppGenerator(nn.Module):
         """Kernel launches one forward makes, from the module structure:
         every Conv3x3 module runs K1 once, except the stems' per-stem
         convs, which run fused (G1: 2 launches, G2: 5); every
-        AttnBlockpp in ``flash`` mode runs K3 once."""
-        counts = {"conv3x3": 0, "fir_down2": 0, "fir_up2": 0, "flash_attn": 0}
+        AttnBlockpp in ``flash`` mode runs K3 once.  Every wrapper of
+        ``ops.KERNEL_WRAPPERS`` has a key (the backward kernels 0)."""
+        counts = dict.fromkeys(KERNEL_WRAPPERS, 0)
         stem_roots = ["encoder_x", "pseudo_gap", *_GATES] + [
             n for n, _ in self.named_children()
             if n.startswith(("encoder_c", "feat_weight_c"))
@@ -235,8 +237,8 @@ class NCSNppGenerator(nn.Module):
     def forward(self, x: torch.Tensor, cond1: torch.Tensor, cond2: torch.Tensor,
                 cond3: torch.Tensor, time_cond: torch.Tensor, z: torch.Tensor,
                 pseudo_target: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.training:
-            raise _unsupported("train=True (dropout, kernel backward)")
+        if self.training and self.config.dropout > 0:
+            raise _unsupported("dropout > 0 in training")
         cfg = self.config
         dt = self.dtype
         act = F.silu

@@ -1,4 +1,5 @@
-"""Primitive layers: convs, dense, NIN, time embedding, PixelNorm.
+"""Primitive layers: convs, dense, NIN, the critic's StyleConv2d, time
+embedding, PixelNorm.
 
 The port of ``mudiff_tpu/nn/layers.py:101-283``.  Tensors are NHWC.
 Parameters are float32; each module casts them and its input to its
@@ -110,6 +111,56 @@ class NIN(Dense):
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__(in_dim, num_units, kernel_init=default_init(init_scale),
                          dtype=dtype, device=device)
+
+
+class StyleConv2d(nn.Module):
+    """Plain conv with the sdeflow init (reference dense_layer.py:73-80),
+    the critic's conv (``mudiff_tpu/nn/layers.py:208-235``).
+
+    A k x k kernel is HWIO ``(k, k, Cin, Cout)``; a 1x1 kernel is
+    ``(Cout, Cin)`` (``convert.py``'s layouts).  It runs as plain
+    ``F.conv2d`` / ``F.linear`` in the compute dtype on every device, as
+    the JAX package runs it as XLA ``nn.Conv`` and not through Pallas;
+    so R1's double backward never needs K1's.  The bias is added after
+    the conv, in the compute dtype, as flax does.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 padding: int = 1, use_bias: bool = True, init_scale: float = 1.0,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.in_ch, self.out_ch = in_ch, out_ch
+        self.kernel_size, self.padding = kernel_size, padding
+        self.init_scale = init_scale
+        self.dtype = dtype
+        shape = ((out_ch, in_ch) if kernel_size == 1
+                 else (kernel_size, kernel_size, in_ch, out_ch))
+        self.weight = nn.Parameter(torch.empty(shape, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device)) if use_bias else None
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        area = self.kernel_size ** 2
+        stylegan_dense_init(self.init_scale)(
+            self.weight, area * self.in_ch, area * self.out_ch, generator
+        )
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt)
+        if self.kernel_size == 1 and self.padding == 0:
+            y = F.linear(x, self.weight.to(dt))
+        else:
+            w = self.weight.to(dt)
+            if self.kernel_size == 1:
+                w = w.t()[None, None]
+            y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                         padding=self.padding).permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,

@@ -1,11 +1,21 @@
 """Ops of the port: the FIR family (plain PyTorch) and the hand-written
-CUDA kernels K1 (``conv3x3``), K2a (``fir_down2``), K2b (``fir_up2``) and
-K3 (``flash_attn``)."""
+CUDA kernels K1 (``conv3x3``), K2a (``fir_down2``), K2b (``fir_up2``), K3
+(``flash_attn``) and K3's backward (``flash_attn_bwd_dkv``,
+``flash_attn_bwd_dq``).  Each wrapper is differentiable: K2 twice, K1 and
+K3 once."""
 
 from mudiff_torch.ops._dispatch import plain_kernels, record_calls
 from mudiff_torch.ops.conv3x3 import conv3x3, conv3x3_plain
 from mudiff_torch.ops.fir import fir_down2, fir_up2
-from mudiff_torch.ops.flash_attn import flash_attn, flash_attn_plain
+from mudiff_torch.ops.flash_attn import (
+    attn_di,
+    flash_attn,
+    flash_attn_bwd_dkv,
+    flash_attn_bwd_dq,
+    flash_attn_bwd_plain,
+    flash_attn_plain,
+    row_stats_plain,
+)
 from mudiff_torch.ops.upfirdn2d import (
     conv_downsample_2d,
     downsample_2d,
@@ -15,7 +25,8 @@ from mudiff_torch.ops.upfirdn2d import (
 )
 
 KERNEL_WRAPPERS = {"conv3x3": conv3x3, "fir_down2": fir_down2, "fir_up2": fir_up2,
-                   "flash_attn": flash_attn}
+                   "flash_attn": flash_attn, "flash_attn_bwd_dkv": flash_attn_bwd_dkv,
+                   "flash_attn_bwd_dq": flash_attn_bwd_dq}
 
 
 def reset_launch_counts() -> None:

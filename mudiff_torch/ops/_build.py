@@ -29,6 +29,7 @@ SOURCES = {
     "conv3x3": "conv3x3_kernel.cu",
     "fir": "fir_kernels.cu",
     "flash_attn": "flash_attn_kernel.cu",
+    "flash_attn_bwd": "flash_attn_bwd_kernel.cu",
 }
 
 NVCC_FLAGS = [

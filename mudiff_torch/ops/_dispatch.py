@@ -10,6 +10,14 @@ whole forward through the kernels against the same forward without them.
 
 ``record_calls(log)`` appends ``(kernel name, shape key)`` for every
 wrapper call inside the block, whichever way it goes.
+
+Every wrapper is a ``torch.autograd.Function`` on every device, so its
+backward follows the same rule: plain versions for CPU tensors, kernels
+for CUDA tensors.  The autograd engine runs a CUDA backward on a worker
+thread, where the caller's context variables are not set; so a Function
+captures ``current_mode()`` in its forward and re-enters it with
+``restored(mode)`` in its backward.  A backward therefore runs plain
+(and is recorded) exactly when its forward was.
 """
 
 from __future__ import annotations
@@ -46,14 +54,30 @@ def record_calls(log: List[Tuple[str, tuple]]) -> Iterator[List[Tuple[str, tuple
         _RECORD.reset(token)
 
 
+Mode = Tuple[bool, Optional[List[Tuple[str, tuple]]]]
+
+
+def current_mode() -> Mode:
+    """The calling context's (plain versions forced, call log)."""
+    return _FORCE_PLAIN.get(), _RECORD.get()
+
+
+@contextlib.contextmanager
+def restored(mode: Mode) -> Iterator[None]:
+    """Run the block under a mode captured by ``current_mode()``."""
+    tokens = (_FORCE_PLAIN.set(mode[0]), _RECORD.set(mode[1]))
+    try:
+        yield
+    finally:
+        _RECORD.reset(tokens[1])
+        _FORCE_PLAIN.reset(tokens[0])
+
+
 def use_kernel(name: str, key: tuple, *tensors: Optional[torch.Tensor]) -> bool:
     """True when the call must launch the CUDA kernel.
 
-    Raises for a device other than CPU or CUDA, for tensors on mixed
-    devices, and for a CUDA tensor that requires grad while grad mode is
-    on: the kernels have no backward yet, so nothing may train through
-    them (under ``torch.inference_mode()`` or ``no_grad`` no graph is
-    recorded, so a parameter that still has ``requires_grad`` is fine).
+    Raises for a device other than CPU or CUDA and for tensors on mixed
+    devices.
     """
     log = _RECORD.get()
     if log is not None:
@@ -66,14 +90,7 @@ def use_kernel(name: str, key: tuple, *tensors: Optional[torch.Tensor]) -> bool:
         return False
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
-    if _FORCE_PLAIN.get():
-        return False
-    if torch.is_grad_enabled() and any(t.requires_grad for t in present):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward; call it under "
-            "torch.inference_mode() or on tensors that do not require grad"
-        )
-    return True
+    return not _FORCE_PLAIN.get()
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

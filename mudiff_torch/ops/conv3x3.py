@@ -8,8 +8,9 @@ the input dtype.  The CUDA kernel is ``csrc/conv3x3_kernel.cu``; the
 plain version is ``conv3x3_plain`` (``F.conv2d`` on float32 upcasts).
 
 ``conv3x3`` dispatches by device (``ops/_dispatch.py``): CPU tensors run
-the plain version, CUDA tensors launch the kernel or raise.
-``conv3x3.launches`` counts kernel launches and nothing else.
+the plain version, CUDA tensors launch the kernel or raise.  Its
+backward's input gradient is K1 again; ``conv3x3.launches`` counts
+kernel launches, forward and backward, and nothing else.
 """
 
 from __future__ import annotations
@@ -19,9 +20,16 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from mudiff_torch.ops import _build
-from mudiff_torch.ops._dispatch import DTYPE_CODES, check_cuda_result, use_kernel
+from mudiff_torch.ops._dispatch import (
+    DTYPE_CODES,
+    check_cuda_result,
+    current_mode,
+    restored,
+    use_kernel,
+)
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
@@ -70,10 +78,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> No
         raise ValueError("conv3x3: bias must be a contiguous float32 (Cout,)")
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor,
-            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """3x3 stride-1 SAME conv.  x (B,H,W,Cin), w (3,3,Cin,Cout), bias
-    (Cout,) float32 or None.  Returns (B,H,W,Cout) in x.dtype."""
+def _conv(x: torch.Tensor, w: torch.Tensor,
+          bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1, or its plain version for CPU tensors and under plain_kernels()."""
     key = (tuple(x.shape), w.shape[-1], x.dtype)
     if not use_kernel("conv3x3", key, x, w, bias):
         return conv3x3_plain(x, w, bias)
@@ -90,6 +97,56 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     check_cuda_result("conv3x3", rc)
     conv3x3.launches += 1
     return out
+
+
+def conv3x3_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dw (3,3,Cin,Cout) float32 of a SAME 3x3 conv: the batch-contraction
+    conv of x with g, products of the inputs summed in float32
+    (``pallas_conv.py:357-367``).  Plain PyTorch on every device."""
+    dw = torch.nn.grad.conv2d_weight(
+        x.to(torch.float32).permute(0, 3, 1, 2),
+        (g.shape[-1], x.shape[-1], 3, 3),
+        g.to(torch.float32).permute(0, 3, 1, 2),
+        padding=1,
+    )
+    return dw.permute(2, 3, 1, 0)
+
+
+class _Conv3x3(torch.autograd.Function):
+    """K1 with the JAX package's backward (``pallas_conv.py:342-372``):
+    dx is K1 on the spatially flipped, io-transposed weight; dw and db
+    are plain PyTorch (XLA there), db in float32 for the float32 bias.
+    Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        ctx.mode = current_mode()
+        return _conv(x, w, bias)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        with restored(ctx.mode):
+            if ctx.needs_input_grad[0]:
+                w_flip = w.flip(0, 1).transpose(2, 3).contiguous()
+                dx = _conv(g, w_flip, None)
+            if ctx.needs_input_grad[1]:
+                dw = conv3x3_weight_grad(x, g).to(w.dtype)
+            if ctx.needs_input_grad[2]:
+                db = g.to(torch.float32).sum(dim=(0, 1, 2))
+        return dx, dw, db
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """3x3 stride-1 SAME conv.  x (B,H,W,Cin), w (3,3,Cin,Cout), bias
+    (Cout,) float32 or None.  Returns (B,H,W,Cout) in x.dtype.
+    Differentiable once; its input gradient runs K1 too."""
+    return _Conv3x3.apply(x, w, bias)
 
 
 conv3x3.launches = 0

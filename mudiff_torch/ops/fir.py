@@ -13,7 +13,8 @@ The CUDA kernels are ``csrc/fir_kernels.cu``.  The 4x4 correlation taps
 passed to the kernel as arguments.  Plain versions:
 ``ops/upfirdn2d.py``'s ``downsample_2d`` / ``upsample_2d``.  Dispatch by
 device as in ``ops/_dispatch.py``; ``<wrapper>.launches`` counts kernel
-launches.
+launches, those of backward passes included (a backward of ``fir_down2``
+launches ``fir_up2`` and is counted there).
 """
 
 from __future__ import annotations
@@ -25,7 +26,13 @@ import numpy as np
 import torch
 
 from mudiff_torch.ops import _build
-from mudiff_torch.ops._dispatch import DTYPE_CODES, check_cuda_result, use_kernel
+from mudiff_torch.ops._dispatch import (
+    DTYPE_CODES,
+    check_cuda_result,
+    current_mode,
+    restored,
+    use_kernel,
+)
 from mudiff_torch.ops.upfirdn2d import downsample_2d, setup_fir_kernel, upsample_2d
 
 _FNS = {}
@@ -64,27 +71,70 @@ def _launch(name: str, x: torch.Tensor, out: torch.Tensor, taps: np.ndarray) -> 
     check_cuda_result(name, rc)
 
 
-def fir_down2(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1)) -> torch.Tensor:
-    """FIR downsample by 2, pad (1,1): (B,H,W,C) -> (B,(H-2)//2+1,(W-2)//2+1,C)."""
+def _down(x: torch.Tensor, k: Sequence[float], gain: float) -> torch.Tensor:
+    """K2a or its plain version: FIR down with taps ``k`` x ``gain``."""
     if not use_kernel("fir_down2", (tuple(x.shape), x.dtype), x):
-        return downsample_2d(x, k, factor=2)
+        return downsample_2d(x, k, factor=2, gain=gain)
     b, h, w, c = x.shape
     out = torch.empty((b, (h - 2) // 2 + 1, (w - 2) // 2 + 1, c),
                       dtype=x.dtype, device=x.device)
-    _launch("mudiff_fir_down2", x, out, correlation_taps(k, 1.0))
+    _launch("mudiff_fir_down2", x, out, correlation_taps(k, gain))
     fir_down2.launches += 1
     return out
 
 
-def fir_up2(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1)) -> torch.Tensor:
-    """FIR upsample by 2, gain 4: (B,H,W,C) -> (B,2H,2W,C)."""
+def _up(x: torch.Tensor, k: Sequence[float], gain: float) -> torch.Tensor:
+    """K2b or its plain version: FIR up, taps ``k`` x 4 x ``gain``."""
     if not use_kernel("fir_up2", (tuple(x.shape), x.dtype), x):
-        return upsample_2d(x, k, factor=2)
+        return upsample_2d(x, k, factor=2, gain=gain)
     b, h, w, c = x.shape
     out = torch.empty((b, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
-    _launch("mudiff_fir_up2", x, out, correlation_taps(k, 4.0))
+    _launch("mudiff_fir_up2", x, out, correlation_taps(k, 4.0 * gain))
     fir_up2.launches += 1
     return out
+
+
+# The adjoints (pallas_fir.py:279-305), exact for a symmetric kernel:
+# down at gain g is transposed by up at gain g/4 (up's taps carry the
+# factor 4 of its zero-insert), up at gain g by down at gain 4g.  Each
+# backward applies the other Function, so grad-of-grad runs the kernels
+# too (R1's double backward through the critic's downsamples).
+class _FirDown2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k, gain):
+        ctx.k, ctx.gain, ctx.mode = k, gain, current_mode()
+        return _down(x, k, gain)
+
+    @staticmethod
+    def backward(ctx, g):
+        with restored(ctx.mode):
+            return _FirUp2.apply(g.contiguous(), ctx.k, ctx.gain / 4.0), None, None
+
+
+class _FirUp2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k, gain):
+        ctx.k, ctx.gain, ctx.mode = k, gain, current_mode()
+        return _up(x, k, gain)
+
+    @staticmethod
+    def backward(ctx, g):
+        with restored(ctx.mode):
+            return _FirDown2.apply(g.contiguous(), ctx.k, 4.0 * ctx.gain), None, None
+
+
+def fir_down2(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1),
+              gain: float = 1.0) -> torch.Tensor:
+    """FIR downsample by 2, pad (1,1): (B,H,W,C) -> (B,(H-2)//2+1,(W-2)//2+1,C).
+    Twice differentiable; ``k`` must be symmetric for the backward."""
+    return _FirDown2.apply(x, tuple(k), float(gain))
+
+
+def fir_up2(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1),
+            gain: float = 1.0) -> torch.Tensor:
+    """FIR upsample by 2, gain 4 x ``gain``: (B,H,W,C) -> (B,2H,2W,C).
+    Twice differentiable; ``k`` must be symmetric for the backward."""
+    return _FirUp2.apply(x, tuple(k), float(gain))
 
 
 fir_down2.launches = 0

@@ -1,0 +1,195 @@
+"""Training state: G1, G2 and the critic, three Adam optimizers, EMA, and
+the frozen attention projection.
+
+The port of ``mudiff_tpu/train/state.py``.  The JAX package keeps one
+immutable pytree; here ``TrainState`` holds the modules and updates them
+in place (``torch.optim.Adam``), which keeps one copy of each parameter
+and moment on the card.  The parity decisions are the JAX package's:
+
+* ``att_conv``, the 1x1 conv (ngf*8 -> 1) of the critic's mid features
+  into an attention logit, is drawn once from the seed and never trained
+  (reference engine/train.py:466): a float32 buffer in no optimizer.
+* EMA is a lerp ``decay * shadow + (1 - decay) * params`` after each
+  generator update (``state.py:84-91``).
+* The learning rate is torch's CosineAnnealingLR stepped once per epoch
+  with eta_min 1e-5 (``state.py:44-59``), set before each update from
+  that optimizer's own count of updates, as optax's schedule reads its
+  count.  Adam has betas (beta1, beta2) and eps 1e-8, as ``optax.adam``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from mudiff_torch.config import MuDiffConfig
+from mudiff_torch.diffusion.schedule import DiffusionCoefficients, PosteriorCoefficients
+from mudiff_torch.models import DiscriminatorLarge, NCSNppGenerator
+from mudiff_torch.nn.initializers import stylegan_dense_init
+from mudiff_torch.sampler import serving_device
+
+
+def cosine_epoch_schedule(base_lr: float, num_epoch: int, steps_per_epoch: int,
+                          eta_min: float = 1e-5,
+                          enabled: bool = True) -> Callable[[int], float]:
+    """torch CosineAnnealingLR(T_max=num_epoch) stepped per epoch."""
+
+    def schedule(step: int) -> float:
+        if not enabled:
+            return base_lr
+        epoch = min(step // steps_per_epoch, num_epoch)
+        return eta_min + (base_lr - eta_min) * 0.5 * (1.0 + math.cos(math.pi * epoch / num_epoch))
+
+    return schedule
+
+
+class AttConv(nn.Module):
+    """The frozen random 1x1 projection (reference engine/train.py:466:
+    conv2d(64*8, 1, 1), sdeflow init, never trained).  Its weight is
+    ``(1, C)`` and its bias ``(1,)``, float32 buffers."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.channels = channels
+        self.register_buffer("weight", torch.zeros(1, channels, device=device))
+        self.register_buffer("bias", torch.zeros(1, device=device))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        stylegan_dense_init(1.0)(self.weight, self.channels, 1, generator)
+        self.bias.zero_()
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        """(B, h, w, C) -> (B, h, w, 1) float32."""
+        return F.linear(feat.to(torch.float32), self.weight) + self.bias
+
+
+class TrainState:
+    """G1, G2, the critic D, their optimizers and EMA shadows, the frozen
+    ``att_conv`` and the diffusion tables, on one device.  ``step`` counts
+    G updates, as the JAX state's ``step``."""
+
+    def __init__(self, config: MuDiffConfig, g1: NCSNppGenerator, g2: NCSNppGenerator,
+                 d: DiscriminatorLarge, att_conv: AttConv, steps_per_epoch: int,
+                 device: torch.device):
+        self.config = config
+        self.device = device
+        self.g1, self.g2, self.d, self.att_conv = g1, g2, d, att_conv
+        self.step = 0
+
+        def adam(module, lr):
+            return torch.optim.Adam(module.parameters(), lr=lr,
+                                    betas=(config.beta1, config.beta2), eps=1e-8)
+
+        self.opt_g1, self.opt_g2 = adam(g1, config.lr_g), adam(g2, config.lr_g)
+        self.opt_d = adam(d, config.lr_d)
+        enabled = not config.no_lr_decay
+        self.schedule_g = cosine_epoch_schedule(config.lr_g, config.num_epoch,
+                                                steps_per_epoch, enabled=enabled)
+        self.schedule_d = cosine_epoch_schedule(config.lr_d, config.num_epoch,
+                                                steps_per_epoch, enabled=enabled)
+        self.counts = {"g1": 0, "g2": 0, "d": 0}
+        self.use_ema, self.ema_decay = config.use_ema, config.ema_decay
+        self.ema_g1 = self._shadow(g1) if config.use_ema else None
+        self.ema_g2 = self._shadow(g2) if config.use_ema else None
+        self.coeff = DiffusionCoefficients.from_config(config).as_tensors(device)
+        self.pos_coeff = PosteriorCoefficients.from_config(config).as_tensors(device)
+
+    @staticmethod
+    def _shadow(module: nn.Module) -> Dict[str, torch.Tensor]:
+        return {n: p.detach().clone() for n, p in module.named_parameters()}
+
+    def _adam(self, name: str, module: nn.Module, opt: torch.optim.Optimizer,
+              schedule: Callable[[int], float], grads: List[torch.Tensor]) -> None:
+        lr = schedule(self.counts[name])
+        for group in opt.param_groups:
+            group["lr"] = lr
+        params = list(module.parameters())
+        if len(grads) != len(params):
+            raise ValueError(f"{name}: {len(grads)} gradients for {len(params)} parameters")
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        for p in params:
+            p.grad = None
+        self.counts[name] += 1
+
+    def apply_g_updates(self, grads_g1: List[torch.Tensor],
+                        grads_g2: List[torch.Tensor]) -> None:
+        """Adam on G1 and G2 (gradients in ``parameters()`` order), then
+        the EMA lerp; advances ``step``."""
+        self._adam("g1", self.g1, self.opt_g1, self.schedule_g, grads_g1)
+        self._adam("g2", self.g2, self.opt_g2, self.schedule_g, grads_g2)
+        if self.use_ema:
+            d = self.ema_decay
+            with torch.no_grad():
+                for ema, module in ((self.ema_g1, self.g1), (self.ema_g2, self.g2)):
+                    for n, p in module.named_parameters():
+                        ema[n].mul_(d).add_(p, alpha=1.0 - d)
+        self.step += 1
+
+    def apply_d_updates(self, grads_d: List[torch.Tensor]) -> None:
+        self._adam("d", self.d, self.opt_d, self.schedule_d, grads_d)
+
+    def load_flax(self, converted: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        """Load ``convert.train_state_from_flax``'s output (strict)."""
+        for name in ("g1", "g2", "d", "att_conv"):
+            getattr(self, name).load_state_dict(converted[name], strict=True)
+        if self.use_ema:
+            self.ema_g1, self.ema_g2 = self._shadow(self.g1), self._shadow(self.g2)
+
+    def kernel_launches_per_iteration(self, with_r1: bool = True) -> Dict[str, int]:
+        """Kernel launches of one D step + G step, from the module structure.
+
+        D step: G1 and G2 forward without a graph, three critic forwards
+        (x_t, both fakes), and their backward to D's parameters: each
+        critic FIR down is transposed by one FIR up.  With R1, the first
+        backward (to x_t) runs one FIR up per FIR down of the real pass,
+        and the second backward one FIR down per such FIR up.  G step: G1
+        and G2 forward, two critic forwards, and the backward to G1's and
+        G2's parameters: every K1 forward has its ``dx`` K1 launch except
+        G1's first stem conv, whose inputs (x_{t+1}, conditions) need no
+        gradient; every FIR resample is transposed by the other one; every
+        K3 forward has one dkv and one dq launch.
+        """
+        fwd = [self.g1.kernel_launches_per_forward(), self.g2.kernel_launches_per_forward()]
+        f = {k: fwd[0][k] + fwd[1][k] for k in fwd[0]}
+        cd = self.d.kernel_launches_per_forward()["fir_down2"]
+        r1 = cd if with_r1 else 0
+        counts = dict.fromkeys(f, 0)
+        counts["conv3x3"] = f["conv3x3"] + 2 * f["conv3x3"] - 1
+        counts["fir_down2"] = 2 * f["fir_down2"] + f["fir_up2"] + 5 * cd + r1
+        counts["fir_up2"] = 2 * f["fir_up2"] + f["fir_down2"] + 5 * cd + r1
+        counts["flash_attn"] = 2 * f["flash_attn"]
+        counts["flash_attn_bwd_dkv"] = counts["flash_attn_bwd_dq"] = f["flash_attn"]
+        return counts
+
+
+def create_train_state(config: MuDiffConfig, seed: int = 0, steps_per_epoch: int = 1,
+                       device=None, attn: str = "einsum") -> TrainState:
+    """G1, G2, the critic and ``att_conv`` drawn from the JAX package's
+    initial distributions with ``seed`` (a CPU generator, in that order),
+    on ``device`` (default ``"cuda"``; raises without a card).  Compute
+    in bf16 when ``config.use_bf16``, else fp32; parameters fp32.
+    ``attn`` is the generators' attention lowering (``"flash"``: K3)."""
+    if config.use_grad_checkpoint:
+        raise NotImplementedError("use_grad_checkpoint (remat) is not ported yet; "
+                                  "ROADMAP.md lists it")
+    if config.dropout > 0:
+        raise NotImplementedError("dropout > 0 in training is not ported yet; "
+                                  "ROADMAP.md lists it")
+    device = serving_device(device, "create_train_state")
+    dtype = torch.bfloat16 if config.use_bf16 else torch.float32
+    gen = torch.Generator().manual_seed(seed)
+    g1 = NCSNppGenerator(config, attn=attn, dtype=dtype, generator=gen)
+    g2 = NCSNppGenerator(config, adaptive=True, attn=attn, dtype=dtype, generator=gen)
+    d = DiscriminatorLarge(ngf=config.ngf, t_emb_dim=config.t_emb_dim,
+                           fir_kernel=config.fir_kernel, num_channels=config.num_channels,
+                           dtype=dtype, generator=gen)
+    att_conv = AttConv(config.ngf * 8)
+    att_conv.reset_parameters(gen)
+    modules = [m.to(device).train() for m in (g1, g2, d, att_conv)]
+    return TrainState(config, *modules, steps_per_epoch=steps_per_epoch, device=device)

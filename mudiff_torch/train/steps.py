@@ -1,0 +1,216 @@
+"""The adversarial training steps: D step (with lazy R1) and G step.
+
+The port of ``mudiff_tpu/train/steps.py:65-323``; the loss wiring is the
+reference's (engine/train.py:765-1037):
+
+D step:
+  t ~ U[0, T);  (x_t, x_{t+1}) = q_sample_pairs(real)
+  errD_real  = softplus(-D(x_t, t, x_{t+1})).mean()
+  R1         = (r1_gamma / 2) E[ ||d sum D(x_t) / d x_t||^2 ]  (create_graph,
+               so the penalty's gradient reaches D's parameters)
+  fakes: x0_i from G1 / G2 without a graph, posterior-sampled;
+  errD_fake  = softplus(D(fake_1)).mean() + softplus(D(fake_2)).mean()
+G step (fresh draws):
+  x0_1 = G1(x_{t+1}, c1, c2, c3, t, z); x0_2 = G2(..., pseudo=x0_1);
+  pos_i = sample_posterior(x0_i, x_{t+1}, t);
+  (logit_i, feat_i) = D(pos_i, t, x_{t+1});
+  att_i = bilinear_resize(sigmoid(att_conv(feat_i)));
+  mask = mean(att_2 * BCE(pos_1, sigmoid(pos_2))) + mean(att_1 * BCE(pos_2, sigmoid(pos_1)))
+  errG = adv + lambda_l1 * L1 + lambda_mask * mask
+  (lambda_adv is parsed but never applied, as in the reference.)
+
+As in the JAX package, each step is a loss-and-grad function
+(``d_loss_and_grads``, ``g_loss_and_grads``; gradients in
+``parameters()`` order) plus the update, so a test can read the
+gradients.  Two quirks of the JAX package are kept:
+* R1's "fp32 re-run" (``steps.py:96-103``) casts x_t to fp32, but the
+  critic casts its inputs back to its compute dtype, so under bf16 the
+  R1 pass is the real pass.  The port takes the penalty's gradient from
+  the real pass itself: the same values, one critic forward less.
+* ``jax.image.resize(method="bilinear")`` upsampling 32 -> 256 is
+  ``F.interpolate(mode="bilinear", align_corners=False)``: half-pixel
+  centres, the edge value repeated.
+
+The random draws of each step (``TrainDraws``) come from a
+``torch.Generator`` on the device or are injected.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mudiff_torch.config import MuDiffConfig
+from mudiff_torch.diffusion.sampling import q_sample_pairs, sample_posterior
+from mudiff_torch.train.state import TrainState
+
+Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@dataclass
+class TrainDraws:
+    """The random numbers of one D or G step: ``t`` (B,) int64, the
+    pair's two noises (``noise_t`` for x_t, ``noise_tp1`` for x_{t+1}),
+    ``z`` (B, nz) and the two posterior noises, all float32."""
+
+    t: torch.Tensor
+    noise_t: torch.Tensor
+    noise_tp1: torch.Tensor
+    z: torch.Tensor
+    noise_post1: torch.Tensor
+    noise_post2: torch.Tensor
+
+    @classmethod
+    def draw(cls, config: MuDiffConfig, real: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> "TrainDraws":
+        b, dev = real.shape[0], real.device
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+
+        t = torch.randint(0, config.num_timesteps, (b,), generator=generator, device=dev)
+        return cls(t, normal(real.shape), normal(real.shape), normal((b, config.nz)),
+                   normal(real.shape), normal(real.shape))
+
+
+def _softplus_mean(x: torch.Tensor) -> torch.Tensor:
+    return F.softplus(x).mean()
+
+
+def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """BCEWithLogitsLoss(reduction='none') in its stable form."""
+    return F.softplus(logits) - logits * targets
+
+
+def bilinear_resize(x: torch.Tensor, hw: Sequence[int]) -> torch.Tensor:
+    """(B, h, w, C) -> (B, H, W, C), half-pixel bilinear (upsampling)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1)
+
+
+def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d params; a parameter the loss does not reach gets zeros
+    (as ``jax.grad`` gives), so Adam still decays its moments."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def d_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws,
+                     with_r1: bool) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """The D step's gradients (``state.d.parameters()`` order) and losses."""
+    cfg = state.config
+    c1, c2, c3, real = batch
+    b, t = real.shape[0], draws.t
+    x_t, x_tp1 = q_sample_pairs(state.coeff, real, t, draws.noise_t, draws.noise_tp1)
+    if with_r1:
+        x_t.requires_grad_(True)
+    logit_real, _ = state.d(x_t, t, x_tp1)
+    err_real = _softplus_mean(-logit_real)
+    if with_r1:
+        (grad_x,) = torch.autograd.grad(logit_real.sum(), x_t, create_graph=True)
+        per_sample = grad_x.reshape(b, -1).square().sum(dim=1)
+        penalty = (cfg.r1_gamma / 2.0) * per_sample.mean()
+    else:
+        penalty = torch.zeros((), dtype=torch.float32, device=real.device)
+
+    with torch.no_grad():
+        x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z)
+        x0_g2 = state.g2(x_tp1, c1, c2, c3, t, draws.z, pseudo_target=x0_g1)
+    pos_g1 = sample_posterior(state.pos_coeff, x0_g1, x_tp1, t, draws.noise_post1)
+    pos_g2 = sample_posterior(state.pos_coeff, x0_g2, x_tp1, t, draws.noise_post2)
+    logit_f1, _ = state.d(pos_g1, t, x_tp1)
+    logit_f2, _ = state.d(pos_g2, t, x_tp1)
+    err_fake = _softplus_mean(logit_f1) + _softplus_mean(logit_f2)
+
+    total = err_real + penalty + err_fake
+    grads = _grads(total, list(state.d.parameters()))
+    aux = {"D_total": total, "D_real": err_real, "D_fake": err_fake, "R1": penalty}
+    return grads, {k: v.detach() for k, v in aux.items()}
+
+
+def g_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws
+                     ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]],
+                                Dict[str, torch.Tensor]]:
+    """The G step's gradients (G1's and G2's, ``parameters()`` order) and
+    losses.  D's parameters get no gradient."""
+    cfg = state.config
+    c1, c2, c3, real = batch
+    t = draws.t
+    _, x_tp1 = q_sample_pairs(state.coeff, real, t, draws.noise_t, draws.noise_tp1)
+    x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z)
+    x0_g2 = state.g2(x_tp1, c1, c2, c3, t, draws.z, pseudo_target=x0_g1)
+    pos_g1 = sample_posterior(state.pos_coeff, x0_g1, x_tp1, t, draws.noise_post1)
+    pos_g2 = sample_posterior(state.pos_coeff, x0_g2, x_tp1, t, draws.noise_post2)
+    logit_g1, feat_g1 = state.d(pos_g1, t, x_tp1)
+    logit_g2, feat_g2 = state.d(pos_g2, t, x_tp1)
+
+    hw = pos_g1.shape[1:3]
+    att_g1 = bilinear_resize(torch.sigmoid(state.att_conv(feat_g1)), hw)
+    att_g2 = bilinear_resize(torch.sigmoid(state.att_conv(feat_g2)), hw)
+    mask_loss = (torch.mean(att_g2 * _bce_with_logits(pos_g1, torch.sigmoid(pos_g2)))
+                 + torch.mean(att_g1 * _bce_with_logits(pos_g2, torch.sigmoid(pos_g1))))
+    err_adv = _softplus_mean(-logit_g1) + _softplus_mean(-logit_g2)
+    err_l1 = torch.mean(torch.abs(x0_g1 - real)) + torch.mean(torch.abs(x0_g2 - real))
+    total = err_adv + cfg.lambda_l1_loss * err_l1 + cfg.lambda_mask_loss * mask_loss
+
+    p1, p2 = list(state.g1.parameters()), list(state.g2.parameters())
+    grads = _grads(total, p1 + p2)
+    aux = {"G_total": total, "G_adv": err_adv, "G_L1": err_l1, "G_mask": mask_loss}
+    return (grads[:len(p1)], grads[len(p1):]), {k: v.detach() for k, v in aux.items()}
+
+
+def make_d_step() -> Callable:
+    """``d_step(state, batch, draws, with_r1) -> losses``: gradients,
+    then Adam on D."""
+
+    def d_step(state: TrainState, batch: Batch, draws: TrainDraws,
+               with_r1: bool) -> Dict[str, torch.Tensor]:
+        grads, aux = d_loss_and_grads(state, batch, draws, with_r1)
+        state.apply_d_updates(grads)
+        return aux
+
+    return d_step
+
+
+def make_g_step() -> Callable:
+    """``g_step(state, batch, draws) -> losses``: gradients, then Adam on
+    G1 and G2 and the EMA."""
+
+    def g_step(state: TrainState, batch: Batch, draws: TrainDraws) -> Dict[str, torch.Tensor]:
+        (grads_g1, grads_g2), aux = g_loss_and_grads(state, batch, draws)
+        state.apply_g_updates(grads_g1, grads_g2)
+        return aux
+
+    return g_step
+
+
+def make_train_step(config: MuDiffConfig) -> Callable:
+    """One call = one D step + one G step, the reference's iteration.
+
+    ``train_step(state, batch, generator=None, draws=None, with_r1=None)``
+    updates ``state`` in place and returns the losses.  ``with_r1``
+    defaults to the lazy schedule: R1 when ``lazy_reg`` is None or
+    ``state.step % lazy_reg == 0``.  ``draws`` is a (D step, G step) pair
+    of ``TrainDraws``; without it both are drawn from ``generator``.
+    """
+    d_step, g_step = make_d_step(), make_g_step()
+
+    def train_step(state: TrainState, batch: Batch,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Tuple[TrainDraws, TrainDraws]] = None,
+                   with_r1: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        if with_r1 is None:
+            with_r1 = config.lazy_reg is None or state.step % config.lazy_reg == 0
+        if draws is None:
+            real = batch[3]
+            draws = (TrainDraws.draw(config, real, generator),
+                     TrainDraws.draw(config, real, generator))
+        d_aux = d_step(state, batch, draws[0], with_r1)
+        g_aux = g_step(state, batch, draws[1])
+        return {**d_aux, **g_aux}
+
+    return train_step

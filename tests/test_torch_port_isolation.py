@@ -15,7 +15,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import pytest
+
+from mudiff_torch import ops
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -31,7 +34,9 @@ print(len(names), bad)
 assert len(names) >= 15, names
 assert {"mudiff_torch.infer.volume", "mudiff_torch.infer.generators",
         "mudiff_torch.cli.args", "mudiff_torch.cli.test_volume",
-        "mudiff_torch.utils.nifti", "mudiff_torch.ops.flash_attn"} <= set(names), names
+        "mudiff_torch.utils.nifti", "mudiff_torch.ops.flash_attn",
+        "mudiff_torch.models.critic", "mudiff_torch.train.state",
+        "mudiff_torch.train.steps"} <= set(names), names
 assert not bad, bad
 """
 
@@ -116,8 +121,10 @@ def test_chip_smoke_rows_count_each_path_on_its_own():
     log_main = [("conv3x3", ("a",))] * 3
     log_volume = [("conv3x3", ("a",)), ("conv3x3", ("b",)), ("conv3x3", ("b",))]
     counts = chip_smoke.shape_counts({"launches": log_main, "volume_launches": log_volume})
-    assert counts == {"conv3x3": {("a",): {"launches": 3, "volume_launches": 1},
-                                  ("b",): {"launches": 0, "volume_launches": 2}}}
+    assert counts == {"conv3x3": {("a",): {"launches": 3, "volume_launches": 1,
+                                           "train_launches": 0},
+                                  ("b",): {"launches": 0, "volume_launches": 2,
+                                           "train_launches": 0}}}
     times = {("a",): 1.0, ("b",): 2.0}
     rows = [{"kernel": "conv3x3", **c, "err_bf16": 0.0, "ms": times[key], "plain_ms": 0.0,
              "library_ms": 0.0, "flop_ms": 0.1, "byte_ms": 0.0}
@@ -130,12 +137,36 @@ def test_chip_smoke_rows_count_each_path_on_its_own():
     assert volume["shapes"] == 2
 
 
+def test_chip_smoke_backward_entries_sum_the_training_phase():
+    """K3's backward kernels are counted in the training phase's run."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    rows = [{"kernel": "flash_attn_bwd_dq", "launches": 0, "volume_launches": 0,
+             "train_launches": 8, "err_bf16": 0.002, "ms": 4.0, "plain_ms": 2.0,
+             "library_ms": 0.4, "flop_ms": 0.05, "byte_ms": 0.006},
+            {"kernel": "flash_attn_bwd_dq", "launches": 0, "volume_launches": 0,
+             "train_launches": 0, "err_bf16": 0.004, "ms": 9.0, "plain_ms": 3.0,
+             "library_ms": 9.0, "flop_ms": 0.1, "byte_ms": 0.01}]
+    entry = chip_smoke.kernel_summary("flash_attn_bwd_dq", rows, 8)
+    assert entry["source"] == "mudiff_torch/csrc/flash_attn_bwd_kernel.cu"
+    assert "training" in entry["per"] and entry["shapes"] == 1
+    assert entry["launches"] == 8 and entry["max_abs_err"] == 0.004
+    assert abs(entry["ms"] - 32.0) < 1e-9 and abs(entry["bound_ms"] - 0.4) < 1e-9
+    assert entry["bound_by"] == "operations"
+    with pytest.raises(AssertionError, match="add up"):
+        chip_smoke.kernel_summary("flash_attn_bwd_dq", rows, 4)
+
+
 @pytest.mark.parametrize("kernel,function", [
     ("conv3x3", "def conv3x3_gemm("),
     ("fir_down2", "def downsample_2d_pallas("),
     ("fir_up2", "def upsample_2d_pallas("),
     # K3 is a stock kernel outside the repo: named by its call site
     ("flash_attn", "h = flash_attention("),
+    # its backward, in the installed jax package
+    ("flash_attn_bwd_dkv", "def _flash_attention_bwd_dkv("),
+    ("flash_attn_bwd_dq", "def _flash_attention_bwd_dq("),
 ])
 def test_chip_smoke_names_the_tpu_kernel_each_kernel_replaces(kernel, function):
     sys.path.insert(0, str(REPO))
@@ -143,8 +174,10 @@ def test_chip_smoke_names_the_tpu_kernel_each_kernel_replaces(kernel, function):
 
     source, replaces = chip_smoke.SOURCES[kernel]
     assert (REPO / source).is_file()
+    assert set(chip_smoke.SOURCES) == set(ops.KERNEL_WRAPPERS)
     path, line = replaces.split(":")
-    text = (REPO / path).read_text().splitlines()[int(line) - 1]
+    root = Path(jax.__file__).resolve().parent.parent if path.startswith("jax/") else REPO
+    text = (root / path).read_text().splitlines()[int(line) - 1]
     if function.startswith("def "):
         assert text.startswith(function)
     else:

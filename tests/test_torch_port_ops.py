@@ -187,7 +187,8 @@ def test_wrappers_count_only_kernel_launches_and_record_calls():
         q = x.reshape(1, 64, 4)
         ops.flash_attn(q, q, q, 0.5)
     # CPU tensors take the plain versions: no kernel launched
-    assert ops.launch_counts() == {"conv3x3": 0, "fir_down2": 0, "fir_up2": 0, "flash_attn": 0}
+    assert ops.launch_counts() == {"conv3x3": 0, "fir_down2": 0, "fir_up2": 0, "flash_attn": 0,
+                                   "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
     assert [name for name, _ in log] == ["conv3x3", "fir_down2", "fir_up2", "flash_attn"]
 
 
