@@ -47,7 +47,9 @@ ends the run with a non-zero exit code:
    function (cuDNN conv, depthwise conv, conv-transpose,
    scaled_dot_product_attention and its backward) with CUDA events; the
    bound is the larger of bytes / HBM rate and operations / peak rate of
-   the card;
+   the card.  K1's and K3's rows name their design ("tc": bf16 / fp16 on
+   the tensor cores, "fma": fp32 on the CUDA cores) and every row and
+   entry its share of the bound (bound ms / ms);
 8. the whole sample with the plain versions forced, same weights and
    injected noise: bf16 and fp32 differences against stated tolerances;
 9. best-of-N slices/s of one request, and one request under
@@ -223,6 +225,21 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
     return float(err.max())
 
 
+def design_of(dtype) -> str:
+    """Which of K1's and K3's two kernels a dtype runs: "tc" (bf16 and
+    fp16, mma.sync on the tensor cores) or "fma" (fp32 on the CUDA
+    cores)."""
+    import torch
+
+    return "fma" if dtype == torch.float32 else "tc"
+
+
+def with_bound_share(row: dict) -> dict:
+    """The row with its share of the bound: bound ms / kernel ms."""
+    row["bound_share"] = max(row["flop_ms"], row["byte_ms"]) / row["ms"]
+    return row
+
+
 def conv_rows(shapes, peaks, card):
     """K1 at each shape of either path: checks, times, bound.  ``shapes``
     maps (x shape, Cout, dtype) to its launch counts (``shape_counts``)."""
@@ -255,15 +272,16 @@ def conv_rows(shapes, peaks, card):
         size = xd.element_size()
         flops = 2.0 * b * h * w * 9 * cin * cout
         nbytes = size * (b * h * w * (cin + cout) + 9 * cin * cout) + 4.0 * cout
-        rows.append({
+        rows.append(with_bound_share({
             "kernel": "conv3x3", "x": list(xshape), "cout": cout, "dtype": str(dtype)[6:],
-            **counts, "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
+            "design": design_of(dtype), **counts,
+            "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
             "ms": time_ms(lambda: conv3x3(xd, wd, bias)),
             "plain_ms": time_ms(lambda: conv3x3_plain(xd, wd, bias)),
             "library_ms": time_ms(lambda: F.conv2d(x_nchw, w_oihw, bias_d, padding=1)),
             "flop_ms": flops / (bf16_peak if size == 2 else fp32_peak) * 1e3,
             "byte_ms": nbytes / hbm * 1e3,
-        })
+        }))
         print(json.dumps({"card": card, **rows[-1]}), flush=True)
     return rows
 
@@ -370,16 +388,17 @@ def flash_rows(shapes, peaks, card):
         check_close(f"SDPA ({backend}) {(b, length, c)}", library(),
                     flash_attn_plain(qd, kd, vd, scale), *LIB_TOL)
         size = qd.element_size()
-        rows.append({
+        rows.append(with_bound_share({
             "kernel": "flash_attn", "shape": [b, length, c], "dtype": str(dtype)[6:],
-            **counts, "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
+            "design": design_of(dtype), **counts,
+            "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
             "ms": time_ms(lambda: flash_attn(qd, kd, vd, scale)),
             "plain_ms": time_ms(lambda: flash_attn_plain(qd, kd, vd, scale)),
             "library_ms": time_ms(library), "library": f"scaled_dot_product_attention ({backend})",
             "flop_ms": 4.0 * b * length * length * c
                        / (bf16_peak if size == 2 else fp32_peak) * 1e3,
             "byte_ms": 4.0 * b * length * c * size / hbm * 1e3,
-        })
+        }))
         print(json.dumps({"card": card, **rows[-1]}), flush=True)
     return rows
 
@@ -559,7 +578,7 @@ def kernel_summary(name, rows, launches, path=None):
     compute = total("flop_ms")
     memory = total("byte_ms")
     bound = sum(r[path] * max(r["flop_ms"], r["byte_ms"]) for r in mine)
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1], "launches": launches,
         "max_abs_err": max(r["err_bf16"] for r in mine),
@@ -568,6 +587,11 @@ def kernel_summary(name, rows, launches, path=None):
         "library_ms": total("library_ms"), "per": run_of(path),
         "shapes": sum(1 for r in mine if r[path]),
     }
+    entry["bound_share"] = bound / entry["ms"] if entry["ms"] else None
+    designs = sorted({r["design"] for r in mine if r[path] and "design" in r})
+    if designs:
+        entry["design"] = "+".join(designs)
+    return entry
 
 
 def grad_runs_through_kernels(device) -> dict:

@@ -7,41 +7,49 @@
 // _flash_attention_kernel_single_batch).  Same function: per batch row,
 // s = q.k^T in fp32 from the input dtype, s *= scale, an online softmax
 // with running max m and sum l in fp32, p = exp(s - m) rounded to the
-// input dtype, p.v accumulated in fp32, the output rounded to the input
-// dtype.  Non-causal, one head, no mask or segment ids.  q, k, v and out
-// are (B, L, C) contiguous.  When m_out and l_out are not null, each row's
-// final max m and sum l = sum exp(s - m) go there as (B, L) fp32: the
-// statistics the backward (flash_attn_bwd_kernel.cu) recomputes p from,
-// as the TPU kernel saves l and m as residuals.  With them null the
-// output is the same bit for bit.
+// input dtype, p.v accumulated in fp32, one division by l at the end, the
+// output rounded to the input dtype.  Non-causal, one head, no mask or
+// segment ids.  q, k, v and out are (B, L, C) contiguous.  When m_out and
+// l_out are not null, each row's final max m and sum l = sum exp(s - m)
+// (unrounded p) go there as (B, L) fp32: the statistics the backward
+// (flash_attn_bwd_kernel.cu) recomputes p from, as the TPU kernel saves l
+// and m as residuals.  With them null the output is the same bit for bit.
 //
 // What bounds it on an H100: operations.  Per batch row it does 4 L^2 C
 // flops on 4 L C elements, i.e. L = 4096 flops per element moved, far
-// above the card's ridge.  This first version runs on the CUDA cores in
-// fp32 FMA (for bf16 and fp32 inputs alike), so it sits well above its
-// tensor-core bound; its distance is recorded in PERF.md, and an
-// mma/wgmma version is later work.
+// above the card's ridge.
 //
-// Design.  One block of 256 threads owns BQ queries of one batch row and
-// walks over all keys in tiles of BK = 64.  Q (BQ x C) stays in shared
-// memory as fp32; one buffer takes the K tile, then the V tile.  Per key
-// tile: (1) each thread computes an SR x 4 patch of the scores (its keys
-// interleaved by 16, so a quarter-warp reads 8 different K rows from 8
-// bank groups); (2) the row max and row sum are reduced across the 16
-// lanes that share a row with shuffles, the running statistics are
-// updated, and p (rounded to the input dtype) and the rescale factor go
-// to shared memory; (3) each thread owns a 4 x CPT patch of the output
-// accumulator in registers, rescales it and adds p.v.  The accumulator
-// is not normalised per tile: it is divided by l once, at the end.
+// Two hand-written kernels, chosen by dtype in mudiff_flash_attn:
 //
-// Head dims 256 and 512 are large.  The block's tile sizes are picked per
-// head-dim class (CMAX) so that the accumulator is 64 registers a thread
-// and shared memory stays under the 227 KB a block may use: CMAX 512
-// takes BQ = 32 queries (207 KB of dynamic shared memory), CMAX 256
-// BQ = 64 (151 KB).  Any C that is a multiple of 4 and at most 512 runs
-// in the smallest class that holds it; columns past C are zero in shared
-// memory and masked at the store.  Keys past L score -inf (p = 0) and
-// their V rows are zero; queries past L are computed and not stored.
+// * bf16 / fp16: flash_attn_kernel_tc, FlashAttention-2 on the tensor
+//   cores.  A block owns BQ = 64 queries of one batch row, four row groups
+//   of 16; each warp owns the 16 query rows of its group.  Q stays in
+//   shared memory (its fragments are reloaded by ldmatrix, as registers
+//   hold the output); K and V tiles of BK = 64 keys come in by cp.async
+//   into one buffer each, the V tile's copy overlapping S = Q K^T and the
+//   next K tile's copy overlapping the softmax and P V.  S and O += P V
+//   run as mma.sync.m16n8k16 with fp32 accumulators.  C <= 256 (the path's
+//   head dim, nf = 64; a smaller C runs with zero-filled columns): one
+//   warp per row group owns the whole 16 x 256 output (128 fp32 registers
+//   a thread) and all 64 keys, and P goes from the S accumulator straight
+//   into A fragments.  C = 512
+//   (nf = 128): a 16 x 512 fp32 output does not fit in a warp's
+//   registers, so two warps share each row group.  Warp j scores keys
+//   32j..32j+31 of the tile against all of C and owns output columns
+//   256j..256j+255; the pair exchanges its row maxima through shared
+//   memory (a named barrier per pair), both rescale by the same running
+//   max, write their halves of P (rounded) to shared memory and each
+//   multiplies the whole 16 x 64 P by its half of V.  The partial row
+//   sums are added across the pair at the end.  No score is computed
+//   twice.  Keys past L score -inf (p = 0) and their V rows load as
+//   zeros; query rows past L load as zeros and are not stored; columns
+//   past C load as zeros.
+//
+// * fp32: flash_attn_kernel_fma, on the CUDA cores in fp32 FMA (TF32
+//   would miss the fp32 tolerance).  One block of 256 threads owns BQ
+//   queries; per key tile of 64 it computes a patch of scores per thread,
+//   reduces the row statistics with shuffles, stages p in shared memory
+//   and accumulates p.v in a register patch per thread.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -49,7 +57,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------- fp32 FMA
+
+namespace ffma {
 
 constexpr int THREADS = 256;
 constexpr int BK = 64;            // keys per tile
@@ -64,60 +78,17 @@ template <> struct Tile<256> { static constexpr int BQ = 64, CPT = 16; };
 template <> struct Tile<128> { static constexpr int BQ = 64, CPT = 8; };
 template <> struct Tile<64> { static constexpr int BQ = 64, CPT = 4; };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ float4 load4(const __half* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
-  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
-  uint2 raw;
-  *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(a, b);
-  *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(c, d);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-__device__ __forceinline__ void store4(__half* p, float a, float b, float c, float d) {
-  uint2 raw;
-  *reinterpret_cast<__half2*>(&raw.x) = __floats2half2_rn(a, b);
-  *reinterpret_cast<__half2*>(&raw.y) = __floats2half2_rn(c, d);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-// p rounded to the input dtype before it multiplies v, as the TPU kernel
-// casts p to v.dtype.
-template <typename T> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-template <> __device__ __forceinline__ float round_to<__half>(float x) {
-  return __half2float(__float2half(x));
-}
-
-// rows [row0, row0 + rows) of an (L, C) matrix into dst (row stride LD)
-// as fp32; rows past L are zeros.  C % 4 == 0.
-template <typename T, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+// rows [row0, row0 + rows) of an (L, C) matrix into dst (row stride LD);
+// rows past L are zeros.  C % 4 == 0.
+template <int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
                                           int rows, int L, int C) {
   const int c4 = C >> 2;
   for (int i = threadIdx.x; i < rows * c4; i += THREADS) {
     const int r = i / c4;
     const int cc = (i - r * c4) << 2;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < L) val = load4(src + (size_t)(row0 + r) * C + cc);
+    if (row0 + r < L) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * C + cc);
     *reinterpret_cast<float4*>(dst + r * LD + cc) = val;
   }
 }
@@ -128,12 +99,12 @@ constexpr size_t smem_floats() {
          (size_t)Tile<CMAX>::BQ * (BK + PAD) + 2 * (size_t)Tile<CMAX>::BQ;
 }
 
-template <typename T, int CMAX>
+template <int CMAX>
 __global__ void __launch_bounds__(THREADS)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out,
-                  float* __restrict__ m_out, float* __restrict__ l_out, int L, int C,
-                  float scale) {
+flash_attn_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ m_out, float* __restrict__ l_out, int L, int C,
+                      float scale) {
   constexpr int BQ = Tile<CMAX>::BQ;
   constexpr int CPT = Tile<CMAX>::CPT;
   constexpr int NG = CPT / 4;                 // float4 column groups a thread owns
@@ -157,7 +128,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // columns past C of the K/V buffer are never loaded: zero them once
   for (int i = tid; i < BK * LD; i += THREADS) kvs[i] = 0.f;
-  load_tile<T, LD>(qs, q + base, q0, BQ, L, C);
+  load_tile<LD>(qs, q + base, q0, BQ, L, C);
 
   const int kg = tid % NKG;           // score patch: keys kg + NKG * j
   const int sg = tid / NKG;           //              rows sg * SR + r
@@ -178,7 +149,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < L; k0 += BK) {
     __syncthreads();  // the previous tile's p.v is done with the buffer
-    load_tile<T, LD>(kvs, k + base, k0, BK, L, C);
+    load_tile<LD>(kvs, k + base, k0, BK, L, C);
     __syncthreads();
 
     float s[SR][KPT];
@@ -227,7 +198,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < KPT; ++j) {
         const float p = expf(s[r][j] - m_new);
         sum += p;
-        ps[row * LDP + kg + NKG * j] = round_to<T>(p);
+        ps[row * LDP + kg + NKG * j] = p;
       }
 #pragma unroll
       for (int off = NKG / 2; off > 0; off >>= 1)
@@ -237,7 +208,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (kg == 0) alpha_s[row] = alpha;
     }
     __syncthreads();  // K is consumed; p and alpha are visible
-    load_tile<T, LD>(kvs, v + base, k0, BK, L, C);
+    load_tile<LD>(kvs, v + base, k0, BK, L, C);
     __syncthreads();
 
 #pragma unroll
@@ -282,29 +253,327 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + og * RPT + r;
     if (row >= L) continue;
     const float inv = 1.f / l_s[og * RPT + r];
-    T* orow = out + base + (size_t)row * C;
+    float* orow = out + base + (size_t)row * C;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int col = g * NCG * 4 + cg * 4;
       if (col < C)
-        store4(orow + col, acc[r][g * 4 + 0] * inv, acc[r][g * 4 + 1] * inv,
-               acc[r][g * 4 + 2] * inv, acc[r][g * 4 + 3] * inv);
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[r][g * 4 + 0] * inv, acc[r][g * 4 + 1] * inv,
+                        acc[r][g * 4 + 2] * inv, acc[r][g * 4 + 3] * inv);
+    }
+  }
+}
+
+template <int CMAX>
+cudaError_t launch(const float* q, const float* k, const float* v, float* out, float* m,
+                   float* l, int batch, int L, int C, float scale, cudaStream_t stream) {
+  constexpr int BQ = Tile<CMAX>::BQ;
+  constexpr size_t smem = smem_floats<CMAX>() * sizeof(float);
+  static_assert(smem <= 232448, "tile exceeds the 227 KB a block may use");
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel_fma<CMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BQ - 1) / BQ, batch);
+  flash_attn_kernel_fma<CMAX><<<grid, THREADS, smem, stream>>>(q, k, v, out, m, l, L, C, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_for_c(const void* q, const void* k, const void* v, void* out, float* m,
+                         float* l, int batch, int L, int C, float scale, cudaStream_t s) {
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
+  if (C <= 64) return launch<64>(qf, kf, vf, of, m, l, batch, L, C, scale, s);
+  if (C <= 128) return launch<128>(qf, kf, vf, of, m, l, batch, L, C, scale, s);
+  if (C <= 256) return launch<256>(qf, kf, vf, of, m, l, batch, L, C, scale, s);
+  return launch<512>(qf, kf, vf, of, m, l, batch, L, C, scale, s);
+}
+
+}  // namespace ffma
+
+// ------------------------------------------------------ bf16/fp16 tensor cores
+
+namespace tcattn {
+
+constexpr int BQ = 64;   // queries per block: four row groups of 16
+constexpr int BK = 64;   // keys per tile
+constexpr int PAD = 8;   // 16-bit elements of padding per shared row
+
+template <int CMAX>
+struct Tile {
+  static constexpr int SPLIT = CMAX > 256 ? 2 : 1;  // warps per row group
+  static constexpr int WARPS = 4 * SPLIT;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int OC = CMAX / SPLIT;           // output columns of a warp
+  static constexpr int KW = BK / SPLIT;             // keys a warp scores
+  static constexpr int LD = CMAX + PAD;             // Q / K / V row
+  static constexpr int LDP = BK + PAD;              // P row (SPLIT > 1)
+  static constexpr size_t SMEM =
+      2 * ((size_t)(BQ + 2 * BK) * LD + (SPLIT > 1 ? (size_t)BQ * LDP : 0)) +
+      (SPLIT > 1 ? 4 * (size_t)WARPS * 16 : 0);
+  static_assert(OC <= 256 && OC % 16 == 0 && KW % 16 == 0, "warp tile");
+  static_assert(SMEM <= 232448, "tile exceeds the 227 KB a block may use");
+};
+
+// rows [row0, row0 + BROWS) of an (L, C) matrix into dst (row stride LD),
+// by cp.async: rows past L and columns past C are zero-filled.  16-byte
+// copies when C % 8 == 0, else 8-byte ones (C % 4 == 0).
+template <typename T, int CMAX, int BROWS, int THREADS>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int row0, int L,
+                                          int C, bool vec16) {
+  constexpr int LD = CMAX + PAD;
+  if (vec16) {
+    constexpr int CPR = CMAX / 8;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < BROWS * CPR; i += THREADS) {
+      const int r = i / CPR, c = (i % CPR) * 8;
+      const bool valid = row0 + r < L && c < C;
+      tc::cp_async16(dst + r * LD + c, valid ? src + (size_t)(row0 + r) * C + c : src, valid);
+    }
+  } else {
+    constexpr int CPR = CMAX / 4;
+    for (int i = threadIdx.x; i < BROWS * CPR; i += THREADS) {
+      const int r = i / CPR, c = (i % CPR) * 4;
+      const bool valid = row0 + r < L && c < C;
+      tc::cp_async8(dst + r * LD + c, valid ? src + (size_t)(row0 + r) * C + c : src, valid);
+    }
+  }
+}
+
+// Barrier of the SPLIT warps of row group g (ids 1..4; 0 is __syncthreads).
+template <int SPLIT>
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(SPLIT * 32) : "memory");
+}
+
+template <typename T, int CMAX>
+__global__ void __launch_bounds__(Tile<CMAX>::THREADS)
+flash_attn_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int L, int C, float scale) {
+  using TL = Tile<CMAX>;
+  constexpr int SPLIT = TL::SPLIT, LD = TL::LD, LDP = TL::LDP;
+  constexpr int OC = TL::OC, KW = TL::KW;
+  constexpr int SN = KW / 8;   // score n-tiles of a warp
+  constexpr int ON = OC / 8;   // output n-tiles of a warp
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
+  T* ks = qs + BQ * LD;                    // [BK][LD]
+  T* vs = ks + BK * LD;                    // [BK][LD]
+  T* ps = vs + BK * LD;                    // [BQ][LDP]    (SPLIT > 1)
+  float* red = reinterpret_cast<float*>(ps + (SPLIT > 1 ? BQ * LDP : 0));  // [WARPS][16]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = warp & 3;        // row group: block rows 16g .. 16g + 15
+  const int j = warp >> 2;       // split index: keys KW j.., columns OC j..
+  const int q0 = blockIdx.x * BQ;
+  const size_t base = (size_t)blockIdx.y * L * C;
+  const bool vec16 = C % 8 == 0;
+  const int tiles = (L + BK - 1) / BK;
+
+  load_rows<T, CMAX, BQ, TL::THREADS>(qs, q + base, q0, L, C, vec16);
+  load_rows<T, CMAX, BK, TL::THREADS>(ks, k + base, 0, L, C, vec16);
+  tc::cp_async_commit();
+
+  float o[ON][4];
+#pragma unroll
+  for (int n = 0; n < ON; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // this thread's rows: lane / 4 (h = 0) and lane / 4 + 8 (h = 1) of the group
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};   // partial: this thread's columns, this warp's keys
+
+  const T* qrow = qs + (g * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * BK;
+    tc::cp_async_wait<0>();   // K tile t (and Q) landed
+    __syncthreads();          // ... for all; every warp is done with V tile t-1
+    load_rows<T, CMAX, BK, TL::THREADS>(vs, v + base, k0, L, C, vec16);
+    tc::cp_async_commit();
+
+    // S = Q K^T over this warp's KW keys
+    float s[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    const T* krow = ks + (j * KW + (lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < CMAX; kk += 16) {
+      uint32_t a[4];
+      tc::ldsm_x4(a, qrow + kk);
+#pragma unroll
+      for (int n = 0; n < SN; n += 2) {
+        uint32_t b[4];
+        tc::ldsm_x4(b, krow + n * 8 * LD + kk);
+        tc::mma16816<T>(s[n], a, b[0], b[1]);
+        tc::mma16816<T>(s[n + 1], a, b[2], b[3]);
+      }
+    }
+
+    tc::cp_async_wait<0>();   // V tile t landed
+    __syncthreads();          // ... for all; every warp is done with K tile t
+    if (t + 1 < tiles) load_rows<T, CMAX, BK, TL::THREADS>(ks, k + base, k0 + BK, L, C, vec16);
+    tc::cp_async_commit();
+
+    // online softmax of this thread's two rows
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * KW + n * 8 + (lane & 3) * 2 + (e & 1);
+        const float val = key < L ? s[n][e] * scale : -INFINITY;
+        s[n][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    if constexpr (SPLIT > 1) {
+      if ((lane & 3) == 0) {
+        red[warp * 16 + (lane >> 2)] = mx[0];
+        red[warp * 16 + (lane >> 2) + 8] = mx[1];
+      }
+      group_sync<SPLIT>(g);
+#pragma unroll
+      for (int jj = 0; jj < SPLIT; ++jj)
+        if (jj != j) {
+          mx[0] = fmaxf(mx[0], red[(g + 4 * jj) * 16 + (lane >> 2)]);
+          mx[1] = fmaxf(mx[1], red[(g + 4 * jj) * 16 + (lane >> 2) + 8]);
+        }
+    }
+    // key k0 + 0 is valid and in warp j = 0's keys, so the first tile gives
+    // every row a finite max, and alpha = exp(-inf) = 0 there
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      alpha[h] = expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+      l_run[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m_run[e >> 1]);
+        l_run[e >> 1] += p;
+        s[n][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < ON; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V over all BK keys, this warp's OC columns; p rounded to T
+    const T* vrow = vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + j * OC + (lane >> 4) * 8;
+    if constexpr (SPLIT == 1) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        a[0] = tc::pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+        a[1] = tc::pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+        a[2] = tc::pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        a[3] = tc::pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int n = 0; n < ON; n += 2) {
+          uint32_t b[4];
+          tc::ldsm_x4_t(b, vrow + kk * 16 * LD + n * 8);
+          tc::mma16816<T>(o[n], a, b[0], b[1]);
+          tc::mma16816<T>(o[n + 1], a, b[2], b[3]);
+        }
+      }
+    } else {
+      T* prow = ps + (g * 16 + (lane >> 2)) * LDP + j * KW + (lane & 3) * 2;
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+        *reinterpret_cast<uint32_t*>(prow + n * 8) = tc::pack2<T>(s[n][0], s[n][1]);
+        *reinterpret_cast<uint32_t*>(prow + 8 * LDP + n * 8) = tc::pack2<T>(s[n][2], s[n][3]);
+      }
+      group_sync<SPLIT>(g);
+      const T* pa = ps + (g * 16 + (lane & 15)) * LDP + (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        tc::ldsm_x4(a, pa + kk * 16);
+#pragma unroll
+        for (int n = 0; n < ON; n += 2) {
+          uint32_t b[4];
+          tc::ldsm_x4_t(b, vrow + kk * 16 * LD + n * 8);
+          tc::mma16816<T>(o[n], a, b[0], b[1]);
+          tc::mma16816<T>(o[n + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // row sums: across the quad, then across the warps of the group
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+  }
+  if constexpr (SPLIT > 1) {
+    // every warp of the group read red (the maxima) before the last P
+    // barrier, so it may be overwritten now
+    if ((lane & 3) == 0) {
+      red[warp * 16 + (lane >> 2)] = l_run[0];
+      red[warp * 16 + (lane >> 2) + 8] = l_run[1];
+    }
+    group_sync<SPLIT>(g);
+    float total[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < SPLIT; ++jj) {
+      total[0] += red[(g + 4 * jj) * 16 + (lane >> 2)];
+      total[1] += red[(g + 4 * jj) * 16 + (lane >> 2) + 8];
+    }
+    l_run[0] = total[0];
+    l_run[1] = total[1];
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + g * 16 + (lane >> 2) + 8 * h;
+    if (row >= L) continue;
+    if (m_out != nullptr && j == 0 && (lane & 3) == 0) {
+      m_out[(size_t)blockIdx.y * L + row] = m_run[h];
+      l_out[(size_t)blockIdx.y * L + row] = l_run[h];
+    }
+    const float inv = 1.f / l_run[h];
+    T* orow = out + base + (size_t)row * C;
+#pragma unroll
+    for (int n = 0; n < ON; ++n) {
+      const int col = j * OC + n * 8 + (lane & 3) * 2;
+      if (col < C)
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            tc::pack2<T>(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
     }
   }
 }
 
 template <typename T, int CMAX>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* m,
-                   float* l, int batch, int L, int C, float scale, cudaStream_t stream) {
-  constexpr int BQ = Tile<CMAX>::BQ;
-  constexpr size_t smem = smem_floats<CMAX>() * sizeof(float);
-  static_assert(smem <= 232448, "tile exceeds the 227 KB a block may use");
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<T, CMAX>,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* m, float* l,
+                   int batch, int L, int C, float scale, cudaStream_t stream) {
+  using TL = Tile<CMAX>;
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel_tc<T, CMAX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         static_cast<int>(TL::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BQ - 1) / BQ, batch);
-  flash_attn_kernel<T, CMAX><<<grid, THREADS, smem, stream>>>(
+  flash_attn_kernel_tc<T, CMAX><<<grid, TL::THREADS, TL::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), m, l, L, C, scale);
   return cudaGetLastError();
@@ -313,18 +582,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 template <typename T>
 cudaError_t launch_for_c(const void* q, const void* k, const void* v, void* out, float* m,
                          float* l, int batch, int L, int C, float scale, cudaStream_t s) {
-  if (C <= 64) return launch<T, 64>(q, k, v, out, m, l, batch, L, C, scale, s);
-  if (C <= 128) return launch<T, 128>(q, k, v, out, m, l, batch, L, C, scale, s);
   if (C <= 256) return launch<T, 256>(q, k, v, out, m, l, batch, L, C, scale, s);
   return launch<T, 512>(q, k, v, out, m, l, batch, L, C, scale, s);
 }
 
+}  // namespace tcattn
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16.  q, k, v, out (B, L, C) in that
-// dtype, contiguous, 8-byte aligned (16 for float32); C % 4 == 0 and
-// C <= 512.  m and l: both null, or both (B, L) float32 for the row
-// statistics.  Launches on `stream` and returns the cudaError_t of the launch.
+// dtype, contiguous, 16-byte aligned; C % 4 == 0 and C <= 512.  m and l:
+// both null, or both (B, L) float32 for the row statistics.  float32 runs
+// the FMA kernel, bfloat16 and float16 the tensor-core one.  Launches on
+// `stream` and returns the cudaError_t of the launch.
 extern "C" int mudiff_flash_attn(const void* q, const void* k, const void* v, void* out,
                                  float* m, float* l, int batch, int L, int C, float scale,
                                  int dtype, void* stream) {
@@ -333,9 +603,13 @@ extern "C" int mudiff_flash_attn(const void* q, const void* k, const void* v, vo
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_for_c<float>(q, k, v, out, m, l, batch, L, C, scale, s));
-    case 1: return static_cast<int>(launch_for_c<__nv_bfloat16>(q, k, v, out, m, l, batch, L, C, scale, s));
-    case 2: return static_cast<int>(launch_for_c<__half>(q, k, v, out, m, l, batch, L, C, scale, s));
+    case 0: return static_cast<int>(ffma::launch_for_c(q, k, v, out, m, l, batch, L, C, scale, s));
+    case 1:
+      return static_cast<int>(
+          tcattn::launch_for_c<__nv_bfloat16>(q, k, v, out, m, l, batch, L, C, scale, s));
+    case 2:
+      return static_cast<int>(
+          tcattn::launch_for_c<__half>(q, k, v, out, m, l, batch, L, C, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,9 +4,9 @@ them with ``ctypes``.
 Each source is a plain-C-interface shared library (no PyTorch headers),
 so one ``nvcc`` call takes seconds.  ``build()`` starts one ``nvcc`` per
 missing library, all at once, and waits for all of them.  Libraries go
-to ``mudiff_torch/_build/`` (git-ignored), named by a hash of the source
-and the flags, so an edited source is rebuilt and a stale library is
-never loaded.  Nothing is built or loaded at import time: the first
+to ``mudiff_torch/_build/`` (git-ignored), named by a hash of the source,
+every header under ``csrc/`` and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  Nothing is built or loaded at import time: the first
 CUDA call of a wrapper loads its library, building it if needed.
 """
 
@@ -56,11 +56,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where library ``name`` is built: named by a hash of its source, of
+    every ``csrc/*.cuh`` (a source may include any of them) and of the
+    flags."""
+    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
