@@ -47,9 +47,10 @@ ends the run with a non-zero exit code:
    function (cuDNN conv, depthwise conv, conv-transpose,
    scaled_dot_product_attention and its backward) with CUDA events; the
    bound is the larger of bytes / HBM rate and operations / peak rate of
-   the card.  K1's and K3's rows name their design ("tc": bf16 / fp16 on
-   the tensor cores, "fma": fp32 on the CUDA cores) and every row and
-   entry its share of the bound (bound ms / ms);
+   the card.  K1's, K3's and K3's backward rows name their design ("tc":
+   bf16 / fp16 on the tensor cores, "fma": fp32 on the CUDA cores) and
+   every row and entry its share of the bound (bound ms / ms).  K3's
+   backward runs twice on the same inputs and must give the same bits;
 8. the whole sample with the plain versions forced, same weights and
    injected noise: bf16 and fp32 differences against stated tolerances;
 9. best-of-N slices/s of one request, and one request under
@@ -63,7 +64,7 @@ ends the run with a non-zero exit code:
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 ``mudiff_torch`` package is not beside the script.  ``--out`` also
-writes every per-shape row and the nvcc log to a JSON file.
+writes the build time, every per-shape row and the nvcc log to a JSON file.
 """
 
 from __future__ import annotations
@@ -94,10 +95,11 @@ VOLUME_BATCH = 8
 FLASH_EXTRA_SHAPES = ((4, 4096, 512), (2, 1000, 256))
 # The training phase: the recipe's batch, four iterations (R1 on step 0
 # of lazy_reg 16).  K3's backward is also held and timed at the nf=128
-# width and a ragged length.
+# width, a ragged length and the two smaller head-dim classes of its
+# kernels (64, 128), so that every instance of them launches.
 TRAIN_BATCH = 2
 TRAIN_ITERS = 4
-FLASH_BWD_EXTRA_SHAPES = ((2, 4096, 512), (2, 1000, 256))
+FLASH_BWD_EXTRA_SHAPES = ((2, 4096, 512), (2, 1000, 256), (2, 1024, 64), (2, 1024, 128))
 
 # Tolerances, kernel vs plain version on the same inputs.  Both
 # accumulate in fp32; in bf16 they round the same fp32 sum once, so a
@@ -226,9 +228,9 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
 
 
 def design_of(dtype) -> str:
-    """Which of K1's and K3's two kernels a dtype runs: "tc" (bf16 and
-    fp16, mma.sync on the tensor cores) or "fma" (fp32 on the CUDA
-    cores)."""
+    """Which of the two kernels of K1, K3 and K3's backward (dkv and dq
+    alike) a dtype runs: "tc" (bf16 and fp16, mma.sync on the tensor
+    cores) or "fma" (fp32 on the CUDA cores)."""
     import torch
 
     return "fma" if dtype == torch.float32 else "tc"
@@ -448,7 +450,9 @@ def flash_bwd_rows(shapes, peaks, card):
     ``shapes`` maps (B, L, C, dtype) to each kernel's launch counts
     (``{"flash_attn_bwd_dkv": {path: n}, "flash_attn_bwd_dq": ...}``).
     dkv must do 4 of the 5 products (s, dp, dv, dk), dq 3 (s, dp, dq);
-    the pair does 10 B L^2 C flops once s and dp are shared."""
+    the pair does 10 B L^2 C flops once s and dp are shared.  Each dtype
+    runs both kernels twice: the second run must give the first's bits
+    (one owner per output element, no atomics)."""
     import torch
 
     from mudiff_torch.ops import (attn_di, flash_attn_bwd_dkv, flash_attn_bwd_dq,
@@ -468,6 +472,12 @@ def flash_bwd_rows(shapes, peaks, card):
             di = attn_di(flash_attn_plain(qd, kd, vd, scale), dod)
             dk, dv = flash_attn_bwd_dkv(qd, kd, vd, dod, stats, di, scale)
             dq = flash_attn_bwd_dq(qd, kd, vd, dod, stats, di, scale)
+            again = (*flash_attn_bwd_dkv(qd, kd, vd, dod, stats, di, scale),
+                     flash_attn_bwd_dq(qd, kd, vd, dod, stats, di, scale))
+            for what, first, second in zip(("dk", "dv", "dq"), (dk, dv, dq), again):
+                if not torch.equal(first, second):
+                    raise AssertionError(f"{what} {(b, length, c)} {tag}: two runs on the "
+                                         "same inputs differ")
             with plain_kernels():
                 pk, pv = flash_attn_bwd_dkv(qd, kd, vd, dod, stats, di, scale)
                 pq = flash_attn_bwd_dq(qd, kd, vd, dod, stats, di, scale)
@@ -498,8 +508,9 @@ def flash_bwd_rows(shapes, peaks, card):
             def plain_fn(fn=fn):
                 with plain_kernels():
                     return fn(qd, kd, vd, dod, stats, di, scale)
-            rows.append({
+            rows.append(with_bound_share({
                 "kernel": name, "shape": [b, length, c], "dtype": str(dtype)[6:],
+                "design": design_of(dtype), "bit_identical_reruns": True,
                 **counts[name], "err_bf16": errs["bf16"][name[15:]],
                 "err_fp32": errs["fp32"][name[15:]],
                 "ms": time_ms(lambda fn=fn: fn(qd, kd, vd, dod, stats, di, scale)),
@@ -508,7 +519,7 @@ def flash_bwd_rows(shapes, peaks, card):
                 "library": f"scaled_dot_product_attention backward ({backend}), dq dk dv",
                 "flop_ms": products * flop / peak * 1e3,
                 "byte_ms": (size * elems * (4 + outputs) + 4.0 * 3 * b * length) / hbm * 1e3,
-            })
+            }))
             print(json.dumps({"card": card, **rows[-1]}), flush=True)
     return rows
 
@@ -1086,8 +1097,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     built = _build.build()
-    print(json.dumps({"build_s": time.perf_counter() - t0,
-                      "per_library_s": {k: v["seconds"] for k, v in built.items()}}), flush=True)
+    build = {"build_s": time.perf_counter() - t0,
+             "per_library_s": {k: v["seconds"] for k, v in built.items()}}
+    print(json.dumps(build), flush=True)
 
     cfg = brats_recipe(num_channels_dae=NF, image_size=IMAGE)
     sampler = build_sampler(cfg, device=DEVICE, generator=torch.Generator().manual_seed(SEED))
@@ -1224,7 +1236,7 @@ def main(argv=None) -> int:
     kernels = [kernel_summary(k, rows, counted[k]) for k in ops.KERNEL_WRAPPERS]
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "rows": rows, "kernels": kernels,
+            json.dump({"card": card, "build": build, "rows": rows, "kernels": kernels,
                        "volume_phase_kernels": on_volume, "training_phase_kernels": on_train,
                        "volume": {k: v for k, v in volume.items() if k != "log"},
                        "training": {k: v for k, v in train.items() if k != "log"},

@@ -318,37 +318,6 @@ struct Tile {
   static_assert(SMEM <= 232448, "tile exceeds the 227 KB a block may use");
 };
 
-// rows [row0, row0 + BROWS) of an (L, C) matrix into dst (row stride LD),
-// by cp.async: rows past L and columns past C are zero-filled.  16-byte
-// copies when C % 8 == 0, else 8-byte ones (C % 4 == 0).
-template <typename T, int CMAX, int BROWS, int THREADS>
-__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int row0, int L,
-                                          int C, bool vec16) {
-  constexpr int LD = CMAX + PAD;
-  if (vec16) {
-    constexpr int CPR = CMAX / 8;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < BROWS * CPR; i += THREADS) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const bool valid = row0 + r < L && c < C;
-      tc::cp_async16(dst + r * LD + c, valid ? src + (size_t)(row0 + r) * C + c : src, valid);
-    }
-  } else {
-    constexpr int CPR = CMAX / 4;
-    for (int i = threadIdx.x; i < BROWS * CPR; i += THREADS) {
-      const int r = i / CPR, c = (i % CPR) * 4;
-      const bool valid = row0 + r < L && c < C;
-      tc::cp_async8(dst + r * LD + c, valid ? src + (size_t)(row0 + r) * C + c : src, valid);
-    }
-  }
-}
-
-// Barrier of the SPLIT warps of row group g (ids 1..4; 0 is __syncthreads).
-template <int SPLIT>
-__device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(SPLIT * 32) : "memory");
-}
-
 template <typename T, int CMAX>
 __global__ void __launch_bounds__(Tile<CMAX>::THREADS)
 flash_attn_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
@@ -376,8 +345,8 @@ flash_attn_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
   const bool vec16 = C % 8 == 0;
   const int tiles = (L + BK - 1) / BK;
 
-  load_rows<T, CMAX, BQ, TL::THREADS>(qs, q + base, q0, L, C, vec16);
-  load_rows<T, CMAX, BK, TL::THREADS>(ks, k + base, 0, L, C, vec16);
+  tc::load_rows<T, CMAX, LD, BQ, TL::THREADS>(qs, q + base, q0, L, C, vec16);
+  tc::load_rows<T, CMAX, LD, BK, TL::THREADS>(ks, k + base, 0, L, C, vec16);
   tc::cp_async_commit();
 
   float o[ON][4];
@@ -395,7 +364,7 @@ flash_attn_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = t * BK;
     tc::cp_async_wait<0>();   // K tile t (and Q) landed
     __syncthreads();          // ... for all; every warp is done with V tile t-1
-    load_rows<T, CMAX, BK, TL::THREADS>(vs, v + base, k0, L, C, vec16);
+    tc::load_rows<T, CMAX, LD, BK, TL::THREADS>(vs, v + base, k0, L, C, vec16);
     tc::cp_async_commit();
 
     // S = Q K^T over this warp's KW keys
@@ -420,7 +389,8 @@ flash_attn_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
 
     tc::cp_async_wait<0>();   // V tile t landed
     __syncthreads();          // ... for all; every warp is done with K tile t
-    if (t + 1 < tiles) load_rows<T, CMAX, BK, TL::THREADS>(ks, k + base, k0 + BK, L, C, vec16);
+    if (t + 1 < tiles)
+      tc::load_rows<T, CMAX, LD, BK, TL::THREADS>(ks, k + base, k0 + BK, L, C, vec16);
     tc::cp_async_commit();
 
     // online softmax of this thread's two rows
@@ -444,7 +414,7 @@ flash_attn_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
         red[warp * 16 + (lane >> 2)] = mx[0];
         red[warp * 16 + (lane >> 2) + 8] = mx[1];
       }
-      group_sync<SPLIT>(g);
+      tc::group_sync<SPLIT>(g);
 #pragma unroll
       for (int jj = 0; jj < SPLIT; ++jj)
         if (jj != j) {
@@ -503,7 +473,7 @@ flash_attn_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
         *reinterpret_cast<uint32_t*>(prow + n * 8) = tc::pack2<T>(s[n][0], s[n][1]);
         *reinterpret_cast<uint32_t*>(prow + 8 * LDP + n * 8) = tc::pack2<T>(s[n][2], s[n][3]);
       }
-      group_sync<SPLIT>(g);
+      tc::group_sync<SPLIT>(g);
       const T* pa = ps + (g * 16 + (lane & 15)) * LDP + (lane >> 4) * 8;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
@@ -533,7 +503,7 @@ flash_attn_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
       red[warp * 16 + (lane >> 2)] = l_run[0];
       red[warp * 16 + (lane >> 2) + 8] = l_run[1];
     }
-    group_sync<SPLIT>(g);
+    tc::group_sync<SPLIT>(g);
     float total[2] = {0.f, 0.f};
 #pragma unroll
     for (int jj = 0; jj < SPLIT; ++jj) {

@@ -1,7 +1,9 @@
 // Building blocks shared by the tensor-core kernels (conv3x3_kernel.cu,
-// flash_attn_kernel.cu): asynchronous global -> shared copies (cp.async,
-// with the zero-fill form for halos and tails), ldmatrix fragment loads
-// and the m16n8k16 warp-level matrix product with fp32 accumulation.
+// flash_attn_kernel.cu, flash_attn_bwd_kernel.cu): asynchronous global ->
+// shared copies (cp.async, with the zero-fill form for halos and tails),
+// row tiles of an (L, C) matrix by cp.async, named barriers, ldmatrix
+// fragment loads and the m16n8k16 warp-level matrix product with fp32
+// accumulation.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = threadIdx.x % 32,
 // r = lane / 4, c = (lane % 4) * 2):
@@ -42,6 +44,14 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid
                : "memory");
 }
 
+// 4 bytes, the same contract.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -50,6 +60,37 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + BROWS) of an (L, C) matrix of 16-bit T into dst
+// (row stride LD), by the BLOCK threads of the block: rows past L and
+// columns in [C, CMAX) are zero-filled.  16-byte copies when C % 8 == 0,
+// else 8-byte ones (C % 4 == 0).  The caller commits the group.
+template <typename T, int CMAX, int LD, int BROWS, int BLOCK>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int row0, int L,
+                                          int C, bool vec16) {
+  if (vec16) {
+    constexpr int CPR = CMAX / 8;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < BROWS * CPR; i += BLOCK) {
+      const int r = i / CPR, c = (i % CPR) * 8;
+      const bool valid = row0 + r < L && c < C;
+      cp_async16(dst + r * LD + c, valid ? src + (size_t)(row0 + r) * C + c : src, valid);
+    }
+  } else {
+    constexpr int CPR = CMAX / 4;
+    for (int i = threadIdx.x; i < BROWS * CPR; i += BLOCK) {
+      const int r = i / CPR, c = (i % CPR) * 4;
+      const bool valid = row0 + r < L && c < C;
+      cp_async8(dst + r * LD + c, valid ? src + (size_t)(row0 + r) * C + c : src, valid);
+    }
+  }
+}
+
+// Barrier of the NWARPS warps of group g (ids 1..15; 0 is __syncthreads).
+template <int NWARPS>
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(NWARPS * 32) : "memory");
 }
 
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
