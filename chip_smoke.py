@@ -41,16 +41,20 @@ ends the run with a non-zero exit code:
    without R1 and of the D and G steps, training slices/s, peak memory,
    and one iteration under torch.profiler;
 7. at every distinct shape any path gave each kernel (and, for K3 and
-   its backward, the nf=128 width and a ragged length), hold the kernel
-   against its plain PyTorch version (bf16 and fp32), and time the
+   its backward, the nf=128 width and a ragged length; for K2, the
+   shapes of ``FIR_EXTRA_SHAPES`` on its one-channel path), hold the
+   kernel against its plain PyTorch version (bf16 and fp32), and time the
    kernel, the plain version and one library call computing the same
    function (cuDNN conv, depthwise conv, conv-transpose,
-   scaled_dot_product_attention and its backward) with CUDA events; the
-   bound is the larger of bytes / HBM rate and operations / peak rate of
-   the card.  K1's, K3's and K3's backward rows name their design ("tc":
-   bf16 / fp16 on the tensor cores, "fma": fp32 on the CUDA cores) and
-   every row and entry its share of the bound (bound ms / ms).  K3's
-   backward runs twice on the same inputs and must give the same bits;
+   scaled_dot_product_attention and its backward) with CUDA events,
+   device time only (``time_ms``); K2 also with the L2 cold
+   (``time_cold_ms``), and its share of the bound is read on that
+   time.  The bound is the larger of bytes / HBM rate and operations /
+   peak rate of the card.  K1's, K3's and K3's backward rows name their
+   design ("tc": bf16 / fp16 on the tensor cores, "fma": fp32 on the
+   CUDA cores) and every row and entry its share of the bound (bound ms
+   / ms, K2's bound ms / ms_cold).  K3's backward runs twice on the same
+   inputs and must give the same bits;
 8. the whole sample with the plain versions forced, same weights and
    injected noise: bf16 and fp32 differences against stated tolerances;
 9. best-of-N slices/s of one request, and one request under
@@ -93,6 +97,14 @@ VOLUME_BATCH = 8
 # K3 shapes held and timed beside those the volume phase gives: the
 # nf=128 width (C = 512) and a ragged length.
 FLASH_EXTRA_SHAPES = ((4, 4096, 512), (2, 1000, 256))
+# K2 shapes held and timed beside those the paths give, all on the
+# kernels' one-channel path: odd sizes with C = 3 and C = 1, and a view 2
+# elements into a larger buffer (C = 64 would take 16-byte vectors, but
+# the pointer is off 16-byte alignment).  Each entry is (shape, offset).
+FIR_EXTRA_SHAPES = (((2, 7, 5, 3), 0), ((2, 30, 30, 1), 0), ((2, 32, 32, 64), 2))
+# The write between the launches of a cold-L2 time: larger than the
+# card's 50 MB L2, so no line of the kernel's input is left in it.
+FLUSH_BYTES = 256 * 2**20
 # The training phase: the recipe's batch, four iterations (R1 on step 0
 # of lazy_reg 16).  K3's backward is also held and timed at the nf=128
 # width, a ragged length and the two smaller head-dim classes of its
@@ -169,24 +181,80 @@ def peaks_for(name: str):
     return variant, PEAKS[variant]
 
 
+def hold_device(seconds: float) -> None:
+    """Keep the device busy for about ``seconds`` (one thread spinning on
+    the clock) so that the host queues the calls that follow before the
+    device reaches them."""
+    import torch
+
+    torch.cuda._sleep(int(seconds * 2e9))
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host time to enqueue one call of ``fn`` (no synchronise inside)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def time_ms(fn, target_ms: float = 60.0) -> float:
-    """Mean device time of one call, CUDA events around a run of calls."""
+    """Mean device time of one call, CUDA events around a run of calls.
+    The run is queued behind ``hold_device`` for twice the host's time to
+    enqueue it, so the events bracket device work only, also where a
+    call's kernels take less device time than its wrapper takes host
+    time (a run of such calls would otherwise time the host)."""
     import torch
 
     for _ in range(2):
         fn()
+    host_s = host_ms(fn, reps=3) / 1e3
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    hold_device(2 * host_s + 1e-3)
     start.record()
     fn()
     end.record()
     torch.cuda.synchronize()
     reps = max(3, min(50, math.ceil(target_ms / max(start.elapsed_time(end), 1e-3))))
+    hold_device(min(2 * reps * host_s + 1e-3, 0.5))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(fn, flush, write: bool = True, reps: int = 20) -> float:
+    """Median device time of one call that finds the L2 cold: CUDA events
+    around single calls, each after a pass over ``flush`` (FLUSH_BYTES),
+    queued behind ``hold_device``.  ``write``: the pass writes ``flush``,
+    which leaves the L2 full of dirty lines that the call's own reads
+    must write back; else it reads ``flush``, which leaves clean lines."""
+    import torch
+
+    fn()
+    host_s = host_ms(fn, reps=3) / 1e3
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    hold_device(min(2 * reps * (host_s + 1e-4) + 1e-3, 0.5))
+    for start, end in events:
+        if write:
+            flush.zero_()
+        else:
+            flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(start.elapsed_time(end) for start, end in events)
+    return times[len(times) // 2]
 
 
 def randomize_(module, generator) -> None:
@@ -288,30 +356,57 @@ def conv_rows(shapes, peaks, card):
     return rows
 
 
+def offset_view(x, offset: int):
+    """A contiguous copy of ``x`` that starts ``offset`` elements into a
+    larger buffer (offset 0: ``x`` itself)."""
+    import torch
+
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:].copy_(x.reshape(-1))
+    return buf[offset:].view(x.shape)
+
+
 def fir_rows(shapes, peaks, card):
-    """K2a/K2b at each shape of either path: checks, times, bound.
-    ``shapes`` maps (name, x shape, dtype) to its launch counts."""
+    """K2a/K2b at each shape of either path and at FIR_EXTRA_SHAPES:
+    checks, times, bound.  ``shapes`` maps (name, x shape, dtype, offset)
+    to its launch counts.  Each row names the kernel's path ("vector":
+    16-byte vectors along C, "scalar": one channel a thread); a path's
+    shape must take the vector path, an extra shape the scalar one.
+    Besides the warm time ``ms``, ``ms_cold`` times single launches
+    after a write of FLUSH_BYTES (``ms_cold_clean`` after a read of
+    them), and ``bound_share`` is the bound over ``ms_cold``: K2 moves
+    each byte once, and a caller's input is not in L2 as a warm run's
+    is (K2a's 21 MB main-path shape fits the 50 MB L2 whole)."""
     import torch
     import torch.nn.functional as F
 
     from mudiff_torch.ops import downsample_2d, fir_down2, fir_up2, setup_fir_kernel, upsample_2d
+    from mudiff_torch.ops.fir import vector_path
 
     _, fp32_peak, hbm = peaks
     k = (1, 3, 3, 1)
     g = torch.Generator(DEVICE).manual_seed(SEED + 2)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=DEVICE)
     rows = []
-    for (name, xshape, dtype), counts in sorted(shapes.items(), key=str):
+    for (name, xshape, dtype, offset), counts in sorted(shapes.items(), key=str):
         b, h, w, c = xshape
         x = torch.randn(xshape, generator=g, device=DEVICE)
         down = name == "fir_down2"
         kern, plain = (fir_down2, downsample_2d) if down else (fir_up2, upsample_2d)
+        extra = not any(counts.values())
         errs = {}
         for tag, dt, tol in (("bf16", torch.bfloat16, TOL["bf16"]),
                              ("fp32", torch.float32, FIR_TOL_FP32)):
-            xd = x.to(dt)
-            errs[tag] = check_close(f"{name} {xshape} {tag}", kern(xd, k), plain(xd, k, 2), *tol)
+            xd = offset_view(x.to(dt), offset)
+            if vector_path(xd) == extra:
+                raise AssertionError(f"{name} {xshape} {tag} offset {offset}: "
+                                     f"vector path {vector_path(xd)}")
+            errs[tag] = check_close(f"{name} {xshape} {tag} offset {offset}", kern(xd, k),
+                                    plain(xd, k, 2), *tol)
         # timed in the dtype the path gave this shape
-        xd = x.to(dtype)
+        xd = offset_view(x.to(dtype), offset)
         x_nchw = xd.permute(0, 3, 1, 2)
         taps = torch.tensor(setup_fir_kernel(k), device=DEVICE)
         if down:  # [1,3,3,1] is symmetric, so correlation == convolution
@@ -322,18 +417,24 @@ def fir_rows(shapes, peaks, card):
             library = lambda: F.conv_transpose2d(x_nchw, wdw, stride=2, padding=1, groups=c)
         check_close(f"library {name} {xshape}", library().permute(0, 2, 3, 1),
                     plain(xd, k, 2), *LIB_TOL)
-        out_elems = b * c * (h * w // 4 if down else 4 * h * w)
+        out_elems = b * c * (((h - 2) // 2 + 1) * ((w - 2) // 2 + 1) if down else 4 * h * w)
         taps_per_out = 16 if down else 4
         nbytes = xd.element_size() * (b * h * w * c + out_elems)
-        rows.append({
-            "kernel": name, "x": list(xshape), "dtype": str(dtype)[6:],
+        row = {
+            "kernel": name, "x": list(xshape), "dtype": str(dtype)[6:], "offset": offset,
+            "path": "vector" if vector_path(xd) else "scalar",
             **counts, "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
             "ms": time_ms(lambda: kern(xd, k)),
+            "ms_cold": time_cold_ms(lambda: kern(xd, k), flush),
+            "ms_cold_clean": time_cold_ms(lambda: kern(xd, k), flush, write=False),
+            "host_ms": host_ms(lambda: kern(xd, k)),
             "plain_ms": time_ms(lambda: plain(xd, k, 2)),
             "library_ms": time_ms(library),
             "flop_ms": 2.0 * out_elems * taps_per_out / fp32_peak * 1e3,
             "byte_ms": nbytes / hbm * 1e3,
-        })
+        }
+        row["bound_share"] = max(row["flop_ms"], row["byte_ms"]) / row["ms_cold"]
+        rows.append(row)
         print(json.dumps({"card": card, **rows[-1]}), flush=True)
     return rows
 
@@ -577,7 +678,9 @@ def kernel_summary(name, rows, launches, path=None):
     """One kernel's entry of the ``kernels`` line.  Every time is summed
     over the launches of one run (``path``, by default the one
     ``COUNTED_IN`` names): per-launch time at each shape x that shape's
-    launches in the run, so it covers the same work as ``launches``."""
+    launches in the run, so it covers the same work as ``launches``.
+    K2's rows carry cold-L2 times, and its ``bound_share`` is the bound
+    over the summed ``ms_cold``; every other kernel's is over ``ms``."""
     path = path or COUNTED_IN.get(name, "launches")
     mine = [r for r in rows if r["kernel"] == name]
     if sum(r[path] for r in mine) != launches:
@@ -599,6 +702,10 @@ def kernel_summary(name, rows, launches, path=None):
         "shapes": sum(1 for r in mine if r[path]),
     }
     entry["bound_share"] = bound / entry["ms"] if entry["ms"] else None
+    if all("ms_cold" in r for r in mine):  # K2: the share on the cold-L2 time
+        entry["ms_cold"] = total("ms_cold")
+        entry["ms_cold_clean"] = total("ms_cold_clean")
+        entry["bound_share"] = bound / entry["ms_cold"] if entry["ms_cold"] else None
     designs = sorted({r["design"] for r in mine if r[path] and "design" in r})
     if designs:
         entry["design"] = "+".join(designs)
@@ -1143,8 +1250,11 @@ def main(argv=None) -> int:
 
     counts = shape_counts({"launches": log, "volume_launches": volume["log"],
                            "train_launches": train["log"]})
-    fir_shapes = {(kname, *key): c for kname in ("fir_down2", "fir_up2")
+    fir_shapes = {(kname, *key, 0): c for kname in ("fir_down2", "fir_up2")
                   for key, c in counts[kname].items()}
+    fir_shapes.update({(kname, shape, torch.bfloat16, offset): dict.fromkeys(PATHS, 0)
+                       for kname in ("fir_down2", "fir_up2")
+                       for shape, offset in FIR_EXTRA_SHAPES})
     flash_shapes = {(*shape, torch.bfloat16): dict.fromkeys(PATHS, 0)
                     for shape in FLASH_EXTRA_SHAPES}
     flash_shapes.update(counts["flash_attn"])

@@ -10,7 +10,8 @@ Replace the Pallas FIR kernels of the JAX package:
 
 The CUDA kernels are ``csrc/fir_kernels.cu``.  The 4x4 correlation taps
 (flipped normalized outer product, x4 for up) are computed here and
-passed to the kernel as arguments.  Plain versions:
+passed to the kernel as arguments, and so is the choice between its
+16-byte-vector and its one-channel path (``vector_path``).  Plain versions:
 ``ops/upfirdn2d.py``'s ``downsample_2d`` / ``upsample_2d``.  Dispatch by
 device as in ``ops/_dispatch.py``; ``<wrapper>.launches`` counts kernel
 launches, those of backward passes included (a backward of ``fir_down2``
@@ -43,7 +44,7 @@ def _kernel_fn(name: str):
     if fn is None:
         fn = getattr(_build.load("fir"), name)
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                       + [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -58,6 +59,19 @@ def correlation_taps(k: Sequence[float], gain: float) -> np.ndarray:
     return np.ascontiguousarray(np.flip(k2, (0, 1)) * gain, dtype=np.float32)
 
 
+VECTOR_BYTES = 16  # as csrc/fir_kernels.cu VECTOR_BYTES
+
+
+def vector_path(x: torch.Tensor) -> bool:
+    """Whether the kernels take 16-byte vectors along C for ``x``: C *
+    itemsize a multiple of 16 and ``x`` 16-byte aligned (the output, from
+    ``torch.empty``, always is; the kernels' entry points check both).
+    Else they run one channel a thread (C = 1 or 3, a view at an odd
+    offset)."""
+    return (x.shape[-1] * x.element_size() % VECTOR_BYTES == 0
+            and x.data_ptr() % VECTOR_BYTES == 0)
+
+
 def _launch(name: str, x: torch.Tensor, out: torch.Tensor, taps: np.ndarray) -> None:
     if x.dim() != 4 or x.dtype not in DTYPE_CODES or not x.is_contiguous():
         raise ValueError(f"{name}: need a contiguous (B,H,W,C) float32/bf16/fp16 "
@@ -66,7 +80,8 @@ def _launch(name: str, x: torch.Tensor, out: torch.Tensor, taps: np.ndarray) -> 
     rc = _kernel_fn(name)(
         x.data_ptr(), out.data_ptr(), b, h, w, c,
         taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        DTYPE_CODES[x.dtype], int(vector_path(x)),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_cuda_result(name, rc)
 

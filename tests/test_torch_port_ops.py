@@ -96,7 +96,10 @@ def test_fir_up2_matches_pallas(shape):
 
 
 def _down2_as_kernel(x, taps):
-    """The index arithmetic of csrc/fir_kernels.cu fir_down2_kernel, in numpy."""
+    """The per-output reference order of K2a, in numpy: each output sums
+    its in-image taps from 0, p outer and q inner, as every thread of
+    csrc/fir_kernels.cu fir_down2_kernel does for each output it owns
+    (test_torch_port_fir_tiling.py holds its replay to these bits)."""
     n, h, w, c = x.shape
     oh, ow = (h - 2) // 2 + 1, (w - 2) // 2 + 1
     out = np.zeros((n, oh, ow, c), np.float32)
@@ -111,7 +114,11 @@ def _down2_as_kernel(x, taps):
 
 
 def _up2_as_kernel(x, taps):
-    """The index arithmetic of csrc/fir_kernels.cu fir_up2_kernel, in numpy."""
+    """The per-output reference order of K2b, in numpy: each output of
+    parity (py, px) sums its 2x2 in-image taps from 0, a outer and b
+    inner, as every thread of csrc/fir_kernels.cu fir_up2_kernel does for
+    each output of its quads (test_torch_port_fir_tiling.py holds its
+    replay to these bits)."""
     n, h, w, c = x.shape
     out = np.zeros((n, 2 * h, 2 * w, c), np.float32)
     for oy in range(2 * h):
@@ -128,8 +135,8 @@ def _up2_as_kernel(x, taps):
 
 @pytest.mark.parametrize("k", [(1, 3, 3, 1), (1, 2, 5, 1)])
 def test_fir_kernel_index_math_matches_plain(k):
-    """The taps the wrappers hand the CUDA kernels, run through the
-    kernels' own index arithmetic, give the plain versions' results; an
+    """The taps the wrappers hand the CUDA kernels, summed in the
+    kernels' per-output order, give the plain versions' results; an
     asymmetric kernel catches a missing flip."""
     x = np.random.RandomState(2).randn(2, 7, 10, 3).astype(np.float32)
     down = _down2_as_kernel(x, correlation_taps(k, 1.0))
