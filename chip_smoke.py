@@ -18,6 +18,13 @@ ends the run with a non-zero exit code:
    call that records a graph runs through the kernels, forward and
    backward; a second backward through K1 or K3 raises, through K2 it
    runs the kernels;
+   the int8 leg: the same requests served W8A8 (``use_int8``, K4 on
+   every routed conv), with dynamic scales and then with the static
+   scales that ``calibrate_sampler`` records over CALIB_BATCHES seeded
+   batches, counted as above (K1 and K4 apart); best-of-3 slices/s and
+   one profiled request of each mode; each mode's sample through the
+   kernels against its plain versions (``INT8_SAMPLE_TOL``) and against
+   the bf16 sample;
 4. whole-volume prediction through the port's CLI
    (``mudiff_torch.cli.test_volume.main``, ``--bf16 --attn flash``) on
    three seeded synthetic 240x240x155 contrasts written as .nii.gz, with
@@ -28,7 +35,10 @@ ends the run with a non-zero exit code:
 5. the same volume with the plain versions forced (same seed, so the
    same draws), and both again in fp32 (``--no_bf16``): the fp32 volumes
    within ``SAMPLE_TOL["fp32"]``, the bf16 ones within
-   ``BF16_VOLUME_TOL`` (``volume_drift.py`` measures what sets it);
+   ``BF16_VOLUME_TOL`` (``volume_drift.py`` measures what sets it); then
+   the CLI's default, W8A8, with the int8 leg's calibration written as
+   the sidecars beside the checkpoint, and with ``--int8_dynamic``, each
+   counted and checked as in 4;
 6. training: ``create_train_state`` + ``make_train_step`` at the same
    recipe, batch 2, bf16, ``attn="flash"``, seeded non-trivial weights
    (the critic too, off its zero-init head).  Four iterations on global
@@ -49,8 +59,12 @@ ends the run with a non-zero exit code:
    scaled_dot_product_attention and its backward) with CUDA events,
    device time only (``time_ms``); K2 also with the L2 cold
    (``time_cold_ms``), and its share of the bound is read on that
-   time.  The bound is the larger of bytes / HBM rate and operations /
-   peak rate of the card.  K1's, K3's and K3's backward rows name their
+   time.  K4 is held bit for bit (its codes, s32 accumulator and output,
+   in both modes and in bf16 and fp32 compute) at every shape the int8
+   runs gave it and at INT8_EXTRA_SHAPES, and timed beside
+   ``torch._int_mm`` on the codes' explicit im2col and K1 in bf16.  The
+   bound is the larger of bytes / HBM rate and operations / peak rate of
+   the card.  K1's, K3's and K3's backward rows name their
    design ("tc": bf16 / fp16 on the tensor cores, "fma": fp32 on the
    CUDA cores) and every row and entry its share of the bound (bound ms
    / ms, K2's bound ms / ms_cold).  K3's backward runs twice on the same
@@ -61,10 +75,11 @@ ends the run with a non-zero exit code:
    torch.profiler (device time by kernel, the device's idle share), then
    one batch-8 sample of the volume phase's sampler (--attn flash) too;
 10. every kernel must have launched in 3, 4 or 6; the kernels summed
-   over the volume phase's and over the training phase's launches, then
-   the ``kernels`` JSON line (K1 and K2 over the main path's launches,
-   K3 over the volume phase's, K3's backward over the training
-   phase's), then ``{"ok": true, "device": ...}``.
+   over the volume phase's, the training phase's and the int8 leg's
+   launches, then the ``kernels`` JSON line (K1 and K2 over the main
+   path's launches, K3 over the volume phase's, K3's backward over the
+   training phase's, K4 over the int8 leg's sampler run), then
+   ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 ``mudiff_torch`` package is not beside the script.  ``--out`` also
@@ -159,12 +174,33 @@ TRAIN_TOL = {"fp32": (1e-4, 1e-3), "bf16": (2e-2, 5e-2)}
 TINY_GRAD = 1e-6
 
 # Published dense peaks of the card (NVIDIA data sheets): bf16 tensor-core
-# FLOP/s, fp32 CUDA-core FLOP/s, device-memory bytes/s.
+# FLOP/s, fp32 CUDA-core FLOP/s, device-memory bytes/s; and the int8
+# tensor-core OP/s.
 PEAKS = {
     "H100 SXM": (989e12, 67e12, 3.35e12),
     "H100 PCIe": (756e12, 51e12, 2.0e12),
     "H100 NVL": (835e12, 60e12, 3.9e12),
 }
+INT8_PEAKS = {"H100 SXM": 1979e12, "H100 PCIe": 1513e12, "H100 NVL": 1671e12}
+
+# The int8 leg: the main path's sampler served W8A8 (K4 on every routed
+# conv) with dynamic scales, and with static scales that calibrate_sampler
+# records over CALIB_BATCHES seeded synthetic batches.  K4 is also held
+# and timed at the nf=128 recipe's widest routed site (the decoder's
+# first conv at 64^2: 4nf + 4nf = 1024 -> 512), beside the paths' shapes.
+CALIB_BATCHES = 2
+INT8_EXTRA_SHAPES = (((BATCH, 64, 64, 1024), 512),)
+# The int8 sample through the kernels vs the same with every plain version
+# forced (same weights, injected noise), max abs in [-1, 1] units.  K4
+# gives its plain version's bits (K4 alone through its kernel: 0.0), but
+# K1 rounds its bf16 sums in another order than its plain version, and a
+# one-ulp change of a routed conv's input moves the values near a code
+# boundary to the next of 127 codes: the 4-step sampler carries such flips
+# further than bf16 ulps.  volume_drift.py --int8 read 0.0876, 0.0840,
+# 0.0816 (dynamic) and 0.0618, 0.0595, 0.0622 (static) on seeds 0-2, all of
+# it K1's (K1 alone through its kernel read the same); each limit is 1.5x
+# the largest reading.
+INT8_SAMPLE_TOL = {"dynamic": 0.131, "static": 0.093}
 
 
 def card_line() -> str:
@@ -625,6 +661,221 @@ def flash_bwd_rows(shapes, peaks, card):
     return rows
 
 
+def im2col_int8(q):
+    """The (B*H*W, 9*Cin) int8 im2col of SAME 3x3 codes, K tap-major."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, w, c = q.shape
+    padded = F.pad(q.view(torch.uint8), (0, 0, 1, 1, 1, 1)).view(torch.int8)
+    taps = [padded[:, dy:dy + h, dx:dx + w, :] for dy in range(3) for dx in range(3)]
+    return torch.cat(taps, dim=-1).reshape(b * h * w, 9 * c)
+
+
+def int8_rows(shapes, peaks, int8_peak, card):
+    """K4 at each shape an int8 path gave it and at INT8_EXTRA_SHAPES.
+    ``shapes`` maps the wrapper's key (x shape, Cout, x dtype, compute
+    dtype, mode) to its launch counts.  At every shape, in both modes and
+    in bf16 and fp32 compute: the codes (and in dynamic mode the
+    per-example absmax), the s32 accumulator and the output of K4 equal
+    its plain version's bit for bit.  Timed in the path's dtypes and mode:
+    K4 (the wrapper: quantize and conv), the plain version, the library's
+    ``torch._int_mm`` on the codes' explicit im2col (built outside the
+    timing; the quantize and the epilogue not included) and K1 in bf16 at
+    the same shape.  The bound is the larger of the int8 operations over
+    the int8 peak and the bytes (x in its dtype, the int8 weight and its
+    scales, the output) over the HBM rate."""
+    import torch
+
+    from mudiff_torch.ops import conv3x3, int8_conv3x3, plain_kernels
+    from mudiff_torch.ops import int8_conv as k4
+
+    bf16_peak, _, hbm = peaks
+    g = torch.Generator(DEVICE).manual_seed(SEED + 6)
+    rows = []
+    for (xshape, cout, xdtype, cdtype, mode), counts in sorted(shapes.items(), key=str):
+        b, h, w, cin = xshape
+        # per-channel ranges over two decades, as GroupNorm'd activations
+        spread = torch.logspace(-1, 1, cin, device=DEVICE)
+        x = (torch.randn(xshape, generator=g, device=DEVICE) * spread).to(xdtype)
+        wt = torch.randn((3, 3, cin, cout), generator=g, device=DEVICE) / math.sqrt(9 * cin)
+        bias = 0.1 * torch.randn((cout,), generator=g, device=DEVICE)
+        absmax_c = tuple((x.float().abs().amax(dim=(0, 1, 2)) * 0.8).tolist())
+        qws = {m: k4.quantize_conv_weight(wt, absmax_c if m == "static" else None)
+               for m in ("dynamic", "static")}
+        what = f"int8_conv3x3 {xshape}->{cout} {str(xdtype)[6:]}"
+        for m, qw in qws.items():
+            q, absmax = k4.int8_quantize_cuda(x, qw.inv_a)
+            if m == "dynamic":
+                q_plain, _ = k4.quantize_activation(x)
+                if not torch.equal(absmax, x.float().abs().amax(dim=(1, 2, 3))):
+                    raise AssertionError(f"{what}: per-example absmax differs")
+            else:
+                q_plain = k4.quantize_activation_static(x, qw.inv_a)
+            if not torch.equal(q, q_plain):
+                raise AssertionError(f"{what} {m}: codes differ from the plain version's")
+            acc = k4.int8_conv_cuda(q, qw, absmax, bias, torch.int32)
+            if not torch.equal(acc.double(), k4.conv_acc_plain(q_plain, qw.wq)):
+                raise AssertionError(f"{what} {m}: s32 accumulator differs")
+            for dt in (torch.bfloat16, torch.float32):
+                got = int8_conv3x3(x, None, bias, compute_dtype=dt, qweight=qw)
+                with plain_kernels():
+                    want = int8_conv3x3(x, None, bias, compute_dtype=dt, qweight=qw)
+                if not torch.equal(got, want):
+                    err = float((got.float() - want.float()).abs().max())
+                    raise AssertionError(f"{what} {m} -> {dt}: output differs by {err:.3g}")
+        # timed in the path's dtypes and mode
+        qw = qws[mode]
+
+        def plain_call():
+            with plain_kernels():
+                return int8_conv3x3(x, None, bias, compute_dtype=cdtype, qweight=qw)
+
+        q, absmax = k4.int8_quantize_cuda(x, qw.inv_a)
+        cols, wmat = im2col_int8(q), qw.wq_nk.t()
+        lib = torch._int_mm(cols, wmat)
+        if not torch.equal(lib.view(b, h, w, cout),
+                           k4.int8_conv_cuda(q, qw, absmax, None, torch.int32)):
+            raise AssertionError(f"{what}: torch._int_mm on the im2col differs")
+        xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+        ops = 2.0 * b * h * w * cout * 9 * cin
+        nbytes = (x.element_size() * b * h * w * cin + 9 * cin * cout + 8.0 * cout
+                  + (4.0 * cin if mode == "static" else 0.0)
+                  + torch.empty((), dtype=cdtype).element_size() * b * h * w * cout)
+        rows.append(with_bound_share({
+            "kernel": "int8_conv3x3", "x": list(xshape), "cout": cout,
+            "x_dtype": str(xdtype)[6:], "dtype": str(cdtype)[6:], "mode": mode, "design": "tc",
+            **counts, "bit_exact": True, "err_bf16": 0.0, "err_fp32": 0.0,
+            "ms": time_ms(lambda: int8_conv3x3(x, None, bias, compute_dtype=cdtype,
+                                               qweight=qw)),
+            "plain_ms": time_ms(plain_call),
+            "library_ms": time_ms(lambda: torch._int_mm(cols, wmat)),
+            "library": "torch._int_mm on the explicit int8 im2col (codes to s32 only)",
+            "k1_bf16_ms": time_ms(lambda: conv3x3(xb, wb, bias)),
+            "k1_bf16_bound_ms": 2.0 * b * h * w * cout * 9 * cin / bf16_peak * 1e3,
+            "flop_ms": ops / int8_peak * 1e3, "byte_ms": nbytes / hbm * 1e3,
+        }))
+        del cols, lib
+        print(json.dumps({"card": card, **rows[-1]}), flush=True)
+    return rows
+
+
+def int8_samplers(cfg, sampler, seed: int):
+    """The int8 leg's samplers: ``sampler``'s G1 and G2 weights served
+    W8A8 with dynamic scales, and with the static scales that
+    ``calibrate_sampler`` records over CALIB_BATCHES batches of conditions
+    made from ``seed``.  Returns (dynamic, static, (calib G1, calib G2))."""
+    import torch
+
+    from mudiff_torch import build_sampler
+    from mudiff_torch.infer.calibrate import calibrate_sampler
+
+    cfg8 = cfg.replace(use_int8=True)
+
+    def with_weights(s):
+        s.g1.load_state_dict(sampler.g1.state_dict())
+        s.g2.load_state_dict(sampler.g2.state_dict())
+        return s
+
+    dynamic = with_weights(build_sampler(cfg8, device=DEVICE))
+    g = torch.Generator(DEVICE).manual_seed(seed + 60)
+    batches = [conditions(g, DEVICE) for _ in range(CALIB_BATCHES)]
+    calibs = calibrate_sampler(dynamic.g1, dynamic.g2, dynamic.post, batches,
+                               cfg.num_timesteps, cfg.nz, generator=g)
+    static = with_weights(build_sampler(cfg8, device=DEVICE, int8_calibs=calibs))
+    return dynamic, static, calibs
+
+
+def sample_vs_plain(tag: str, s, conds, x_init, noise, tol: float):
+    """One sample of ``s`` through the kernels against the same with the
+    plain versions forced (same weights, injected noise), each side's
+    launch counts checked.  Returns (sample, max abs diff, launch
+    counts); raises beyond ``tol``."""
+    from mudiff_torch import ops
+
+    ops.reset_launch_counts()
+    got = s(*conds, x_init=x_init, noise=noise)
+    with_kernels = ops.launch_counts()
+    ops.reset_launch_counts()
+    with ops.plain_kernels():
+        want = s(*conds, x_init=x_init, noise=noise)
+    plain = ops.launch_counts()
+    if with_kernels != s.kernel_launches_per_sample() or any(plain.values()):
+        raise AssertionError(f"{tag} sample: launches {with_kernels} with kernels, "
+                             f"{plain} with plain versions forced")
+    diff = float((got - want).abs().max())
+    if not diff <= tol:
+        raise AssertionError(f"{tag} sample, kernels vs plain: max abs diff {diff:.3g} > {tol}")
+    return got, diff, {"launches_kernels": with_kernels, "launches_plain": plain,
+                       "max_abs_sample": float(want.abs().max())}
+
+
+def int8_phase(cfg, sampler, requests, x_init, noise, card) -> dict:
+    """The int8 leg's sampler phase: the main path's requests served W8A8,
+    with dynamic scales and then with calibrated static ones, in one run
+    counted against the module structure (K1 and K4 apart); best-of-3
+    slices/s of each mode and one profiled request of each; each mode's
+    sample (injected noise) against its plain versions
+    (``INT8_SAMPLE_TOL``) and against ``sampler``'s bf16 sample.  The
+    int8 samplers are dropped on return: only their calibrations are
+    kept."""
+    import torch
+
+    from mudiff_torch import ops
+
+    t0 = time.perf_counter()
+    dynamic, static, calibs = int8_samplers(cfg, sampler, SEED)
+    calib_s = time.perf_counter() - t0
+    modes = {"dynamic": dynamic, "static": static}
+    ngen = torch.Generator(DEVICE).manual_seed(SEED + 21)
+    expected = {k: REQUESTS * (dynamic.kernel_launches_per_sample()[k]
+                               + static.kernel_launches_per_sample()[k])
+                for k in ops.KERNEL_WRAPPERS}
+    log, seconds, outs = [], {m: [] for m in modes}, []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with ops.record_calls(log):
+        for mode, s in modes.items():
+            for conds in requests:
+                t = time.perf_counter()
+                outs.append(s(*conds, generator=ngen))
+                torch.cuda.synchronize()
+                seconds[mode].append(time.perf_counter() - t)
+    launches = ops.launch_counts()
+    print(json.dumps({"int8_launch_counts": launches, "expected": expected,
+                      "request_s": seconds}), flush=True)
+    if launches != expected or not launches["int8_conv3x3"]:
+        raise AssertionError(f"int8 launches {launches} != structure's {expected}")
+    for out in outs:
+        if out.shape != (BATCH, IMAGE, IMAGE, 1) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"bad int8 sample: {tuple(out.shape)}")
+        if float(out.std()) < 1e-2:
+            raise AssertionError("int8 sample is near constant")
+    best = {m: best_of(lambda s=s: s(*requests[0], generator=ngen), 3) for m, s in modes.items()}
+    profiles = {m: profile_request(s, requests[0], ngen) for m, s in modes.items()}
+    for m in modes:  # the device's share of an unprofiled request, as for training
+        profiles[m]["idle_share_of_best_request"] = (
+            1.0 - profiles[m]["device_busy_ms"] / (1e3 * best[m]))
+    bf16 = sampler(*requests[0], x_init=x_init, noise=noise)
+    diffs, vs_bf16, runs = {}, {}, {}
+    for m, s in modes.items():
+        got, diffs[m], runs[m] = sample_vs_plain(f"int8 {m}", s, requests[0], x_init, noise,
+                                                 INT8_SAMPLE_TOL[m])
+        vs_bf16[m] = float((got - bf16).abs().max())
+    print(json.dumps({
+        "card": card, "phase": "int8 sampler", "nf": cfg.num_channels_dae, "image": IMAGE,
+        "batch": BATCH, "steps": cfg.num_timesteps, "compute": "bf16", "attn": "bf16",
+        "sites": {"g1": len(calibs[0].sites), "g2": len(calibs[1].sites)},
+        "min_ch": calibs[0].min_ch, "stems": calibs[0].stems,
+        "calibration_s": calib_s, "best_request_s": best,
+        "slices_per_s": {m: BATCH / v for m, v in best.items()},
+        "sample_kernel_vs_plain_max_abs": diffs, "tolerance": INT8_SAMPLE_TOL,
+        "sample_vs_bf16_sample_max_abs": vs_bf16, "sample_runs": runs,
+        "profile_one_request": profiles}), flush=True)
+    return {"launches": launches, "log": log, "calibs": calibs, "best_request_s": best,
+            "profiles": profiles, "sample_diffs": diffs, "sample_vs_bf16": vs_bf16}
+
+
 SOURCES = {
     "conv3x3": ("mudiff_torch/csrc/conv3x3_kernel.cu", "mudiff_tpu/ops/pallas_conv.py:375"),
     "fir_down2": ("mudiff_torch/csrc/fir_kernels.cu", "mudiff_tpu/ops/pallas_fir.py:271"),
@@ -636,17 +887,21 @@ SOURCES = {
                            "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
     "flash_attn_bwd_dq": ("mudiff_torch/csrc/flash_attn_bwd_kernel.cu",
                           "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
+    # XLA-lowered on the TPU, not Pallas
+    "int8_conv3x3": ("mudiff_torch/csrc/int8_conv_kernel.cu", "mudiff_tpu/ops/int8_conv.py:268"),
 }
 
 
 # The launch counts of each row: the main path's run, the volume phase's
-# and the training phase's counted runs.  The ``kernels`` line sums each
-# kernel over the main path's launches, except K3, which the serving path
-# runs only in the volume phase, and K3's backward, which only training
-# runs.
-PATHS = ("launches", "volume_launches", "train_launches")
+# and the training phase's counted runs, and the int8 leg's sampler and
+# volume runs.  The ``kernels`` line sums each kernel over the main path's
+# launches, except K3, which the serving path runs only in the volume
+# phase, K3's backward, which only training runs, and K4, which only the
+# int8 leg runs (its sampler run).
+PATHS = ("launches", "volume_launches", "train_launches", "int8_launches",
+         "int8_volume_launches")
 COUNTED_IN = {"flash_attn": "volume_launches", "flash_attn_bwd_dkv": "train_launches",
-              "flash_attn_bwd_dq": "train_launches"}
+              "flash_attn_bwd_dq": "train_launches", "int8_conv3x3": "int8_launches"}
 
 
 def shape_counts(logs: dict) -> dict:
@@ -662,6 +917,13 @@ def shape_counts(logs: dict) -> dict:
 
 def run_of(path: str) -> str:
     """The run whose launches the count ``path`` holds."""
+    if path == "int8_launches":
+        return (f"the int8 leg's sampler run: {REQUESTS} requests with dynamic scales, then "
+                f"{REQUESTS} with static scales, each a 4-step W8A8 sample of batch {BATCH}")
+    if path == "int8_volume_launches":
+        n = 2 * VOLUME_HALF + 1
+        return (f"the int8 leg's volume runs: the CLI without --bf16, with the static "
+                f"sidecars and with --int8_dynamic, {n} slices in batches of {VOLUME_BATCH}")
     if path == "train_launches":
         return (f"the training phase's run: {TRAIN_ITERS} iterations (D step, R1 on the "
                 f"first, G step) at batch {TRAIN_BATCH}, bf16, attn flash")
@@ -740,7 +1002,7 @@ def grad_runs_through_kernels(device) -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     want = {"conv3x3": 2, "fir_down2": 2, "fir_up2": 2, "flash_attn": 1,
-            "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
+            "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1, "int8_conv3x3": 0}
     if counts != want or not bool(torch.isfinite(gxx).all()):
         raise AssertionError(f"graph-recording calls launched {counts}, want {want}")
     return counts
@@ -776,17 +1038,18 @@ def structure_launches(cfg, attn: str) -> dict:
     from mudiff_torch.models import NCSNppGenerator
 
     with torch.device("meta"):
-        gens = [NCSNppGenerator(cfg, adaptive=a, attn=attn, device="meta")
+        gens = [NCSNppGenerator(cfg, adaptive=a, attn=attn, device="meta").eval()
                 for a in (False, True)]
     counts = [g.kernel_launches_per_forward() for g in gens]
     return {k: cfg.num_timesteps * (counts[0][k] + counts[1][k]) for k in counts[0]}
 
 
-def volume_argv(cfg, workdir: str, out_dir: str) -> list:
-    """The CLI's arguments: cfg's architecture, the three inputs, exact
-    bf16 serving with flash attention."""
+def volume_argv(cfg, workdir: str, out_dir: str, int8: bool = False) -> list:
+    """The CLI's arguments: cfg's architecture, the three inputs, flash
+    attention, and exact bf16 serving (``--bf16``) or, with ``int8``, the
+    CLI's default: W8A8."""
     return [
-        "--bf16", "--attn", "flash", "--image_size", str(cfg.image_size),
+        *([] if int8 else ["--bf16"]), "--attn", "flash", "--image_size", str(cfg.image_size),
         "--num_channels", str(cfg.num_channels), "--num_channels_dae", str(cfg.num_channels_dae),
         "--ch_mult", *map(str, cfg.ch_mult), "--num_res_blocks", str(cfg.num_res_blocks),
         "--attn_resolutions", ",".join(map(str, cfg.attn_resolutions)),
@@ -837,7 +1100,7 @@ def write_volume_inputs(workdir: str, sampler, seed: int) -> None:
     save_generators(os.path.join(workdir, "ckpt"), sampler.g1, sampler.g2)
 
 
-def run_volume(cfg, workdir: str, tag: str, extra=(), plain=False, record=None):
+def run_volume(cfg, workdir: str, tag: str, extra=(), plain=False, record=None, int8=False):
     """One CLI run on the inputs in ``workdir``, its launches zeroed just
     before and read just after.  Returns the checked output volume, the
     run's wall seconds and its launch counts."""
@@ -846,7 +1109,7 @@ def run_volume(cfg, workdir: str, tag: str, extra=(), plain=False, record=None):
     from mudiff_torch import ops
     from mudiff_torch.cli import test_volume
 
-    argv = volume_argv(cfg, workdir, os.path.join(workdir, tag)) + list(extra)
+    argv = volume_argv(cfg, workdir, os.path.join(workdir, tag), int8) + list(extra)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     with ops.record_calls([] if record is None else record), \
@@ -867,35 +1130,50 @@ def volume_distance(a, b) -> float:
     return 2.0 * float(np.abs(a - b).max())
 
 
-def volume_phases(cfg, sampler, card) -> dict:
+def volume_phases(cfg, sampler, calibs, card) -> dict:
     """Phases 4 and 5: the test_volume CLI at full width with --attn
     flash, counted and timed in bf16; the same volume with the plain
-    versions forced; and both again in fp32 (--no_bf16)."""
+    versions forced; and both again in fp32 (--no_bf16).  Then the int8
+    leg's volume: the CLI without --bf16 (W8A8, the static scales of
+    ``calibs`` as sidecars beside the checkpoint), and with
+    --int8_dynamic."""
+    from mudiff_torch.infer.calibrate import calib_sidecar_paths, save_calib
+
     n_slices = 2 * VOLUME_HALF + 1
     batches = math.ceil(n_slices / VOLUME_BATCH)
     expected = {k: batches * v for k, v in structure_launches(cfg, "flash").items()}
-    log = []
-    runs = {  # tag: (extra flags, plain versions forced, call log)
-        "bf16": ((), False, log),  # the phase's counted run
-        "bf16 warm": ((), False, None),  # the same again, timed warm
-        "bf16 plain": ((), True, None),
-        "fp32": (("--no_bf16",), False, None),
-        "fp32 plain": (("--no_bf16",), True, None),
+    expected8 = {k: batches * v for k, v in
+                 structure_launches(cfg.replace(use_int8=True), "flash").items()}
+    log, log8 = [], []
+    runs = {  # tag: (extra flags, plain versions forced, call log, int8)
+        "bf16": ((), False, log, False),  # the phase's counted run
+        "bf16 warm": ((), False, None, False),  # the same again, timed warm
+        "bf16 plain": ((), True, None, False),
+        "fp32": (("--no_bf16",), False, None, False),
+        "fp32 plain": (("--no_bf16",), True, None, False),
+        "int8 static": ((), False, log8, True),
+        "int8 dynamic": (("--int8_dynamic",), False, log8, True),
     }
     vols, seconds, counts = {}, {}, {}
     with tempfile.TemporaryDirectory() as workdir:
         write_volume_inputs(workdir, sampler, SEED + 40)
-        for tag, (extra, plain, record) in runs.items():
+        for calib, path in zip(calibs, calib_sidecar_paths(os.path.join(workdir, "ckpt"))):
+            save_calib(path, calib)
+        for tag, (extra, plain, record, int8) in runs.items():
             vols[tag], seconds[tag], counts[tag] = run_volume(cfg, workdir, tag, extra,
-                                                              plain, record)
-            want = dict.fromkeys(expected, 0) if plain else expected
+                                                              plain, record, int8)
+            want = dict.fromkeys(expected, 0) if plain else expected8 if int8 else expected
             if counts[tag] != want:
                 raise AssertionError(f"volume {tag}: launches {counts[tag]} != {want}")
 
     diffs = {"fp32 kernels vs plain": volume_distance(vols["fp32"], vols["fp32 plain"]),
              "bf16 kernels vs plain": volume_distance(vols["bf16"], vols["bf16 plain"]),
              "bf16 kernels vs fp32 plain": volume_distance(vols["bf16"], vols["fp32 plain"]),
-             "bf16 plain vs fp32 plain": volume_distance(vols["bf16 plain"], vols["fp32 plain"])}
+             "bf16 plain vs fp32 plain": volume_distance(vols["bf16 plain"], vols["fp32 plain"]),
+             "int8 static vs bf16": volume_distance(vols["int8 static"], vols["bf16"]),
+             "int8 dynamic vs bf16": volume_distance(vols["int8 dynamic"], vols["bf16"]),
+             "int8 static vs dynamic": volume_distance(vols["int8 static"],
+                                                       vols["int8 dynamic"])}
     print(json.dumps({
         "card": card, "phase": "volume (test_volume CLI)", "shape": list(VOLUME_SHAPE),
         "slices": n_slices, "batch": VOLUME_BATCH, "batches": batches, "nf": cfg.num_channels_dae,
@@ -903,13 +1181,18 @@ def volume_phases(cfg, sampler, card) -> dict:
         "launch_counts": counts["bf16"], "run_s": seconds,
         "slices_per_s": n_slices / seconds["bf16"],
         "slices_per_s_warm": n_slices / seconds["bf16 warm"],
+        "int8_launch_counts": {tag: counts[tag] for tag in ("int8 static", "int8 dynamic")},
+        "int8_slices_per_s": {tag: n_slices / seconds[tag]
+                              for tag in ("int8 static", "int8 dynamic")},
         "max_abs_diff": diffs, "tolerance": {"fp32": SAMPLE_TOL["fp32"], "bf16": BF16_VOLUME_TOL},
     }), flush=True)
     for tag, tol in (("fp32", SAMPLE_TOL["fp32"]), ("bf16", BF16_VOLUME_TOL)):
         if not diffs[f"{tag} kernels vs plain"] <= tol:
             raise AssertionError(f"{tag} volume, kernels vs plain: max abs diff "
                                  f"{diffs[f'{tag} kernels vs plain']:.3g} > {tol}")
-    return {"launches": counts["bf16"], "log": log, "seconds": seconds, "diffs": diffs}
+    int8_counts = {k: counts["int8 static"][k] + counts["int8 dynamic"][k] for k in expected}
+    return {"launches": counts["bf16"], "log": log, "int8_launches": int8_counts,
+            "int8_log": log8, "seconds": seconds, "diffs": diffs}
 
 
 def iteration_grads(state, batch, draws, plain: bool):
@@ -1125,6 +1408,7 @@ PROFILE_GROUPS = (
     ("K3 flash_attn", ("flash_attn_kernel",)),
     ("K3 bwd dkv", ("flash_attn_bwd_dkv_kernel",)),
     ("K3 bwd dq", ("flash_attn_bwd_dq_kernel",)),
+    ("K4 int8_conv3x3", ("s8conv", "absmax_kernel", "quantize_kernel")),
     ("optimizer (Adam, EMA)", ("adam", "multi_tensor", "foreach")),
     ("copies and casts", ("copy", "memcpy", "memset")),
     ("reductions (GroupNorm statistics, means)", ("reduce_kernel",)),
@@ -1242,14 +1526,25 @@ def main(argv=None) -> int:
 
     print(json.dumps({"graph_recording_calls": grad_runs_through_kernels(DEVICE)}), flush=True)
 
+    # injected noise of the whole-sample comparisons (phase 8, the int8 leg)
+    zgen = torch.Generator(DEVICE).manual_seed(SEED + 30)
+    x_init = torch.randn((BATCH, IMAGE, IMAGE, 1), generator=zgen, device=DEVICE)
+    noise = [(torch.randn((BATCH, cfg.nz), generator=zgen, device=DEVICE),
+              torch.randn((BATCH, IMAGE, IMAGE, 1), generator=zgen, device=DEVICE))
+             for _ in range(cfg.num_timesteps)]
+
+    # -- the int8 leg: the same requests served W8A8, K4 on the path ----------
+    int8 = int8_phase(cfg, sampler, requests, x_init, noise, card)
+
     # -- whole-volume prediction through the CLI, K3 on the path --------------
-    volume = volume_phases(cfg, sampler, card)
+    volume = volume_phases(cfg, sampler, int8["calibs"], card)
 
     # -- the training iteration, K3's backward on the path ---------------------
     train = training_phase(cfg, card)
 
     counts = shape_counts({"launches": log, "volume_launches": volume["log"],
-                           "train_launches": train["log"]})
+                           "train_launches": train["log"], "int8_launches": int8["log"],
+                           "int8_volume_launches": volume["int8_log"]})
     fir_shapes = {(kname, *key, 0): c for kname in ("fir_down2", "fir_up2")
                   for key, c in counts[kname].items()}
     fir_shapes.update({(kname, shape, torch.bfloat16, offset): dict.fromkeys(PATHS, 0)
@@ -1265,38 +1560,23 @@ def main(argv=None) -> int:
         for key, c in counts[n].items():
             bwd_shapes.setdefault(key, {m: dict.fromkeys(PATHS, 0) for m in bwd_names})[n] = c
 
+    int8_shapes = {(shape, cout, torch.bfloat16, torch.bfloat16, mode): dict.fromkeys(PATHS, 0)
+                   for shape, cout in INT8_EXTRA_SHAPES for mode in ("dynamic", "static")}
+    int8_shapes.update(counts["int8_conv3x3"])
+
     # -- each kernel against its plain version, timed ------------------------
     rows = (conv_rows(counts["conv3x3"], peaks, card) + fir_rows(fir_shapes, peaks, card)
-            + flash_rows(flash_shapes, peaks, card) + flash_bwd_rows(bwd_shapes, peaks, card))
+            + flash_rows(flash_shapes, peaks, card) + flash_bwd_rows(bwd_shapes, peaks, card)
+            + int8_rows(int8_shapes, peaks, INT8_PEAKS[variant], card))
 
     # -- the whole sample, kernels vs plain versions -------------------------
-    zgen = torch.Generator(DEVICE).manual_seed(SEED + 30)
-    x_init = torch.randn((BATCH, IMAGE, IMAGE, 1), generator=zgen, device=DEVICE)
-    noise = [(torch.randn((BATCH, cfg.nz), generator=zgen, device=DEVICE),
-              torch.randn((BATCH, IMAGE, IMAGE, 1), generator=zgen, device=DEVICE))
-             for _ in range(cfg.num_timesteps)]
     sampler32 = build_sampler(cfg, device=DEVICE, attn="einsum", compute_dtype=torch.float32)
     sampler32.g1.load_state_dict(sampler.g1.state_dict())
     sampler32.g2.load_state_dict(sampler.g2.state_dict())
     diffs, runs = {}, {}
     for tag, s in (("bf16", sampler), ("fp32", sampler32)):
-        # each side's launch counts show which path it took
-        ops.reset_launch_counts()
-        got = s(*requests[0], x_init=x_init, noise=noise)
-        with_kernels = ops.launch_counts()
-        ops.reset_launch_counts()
-        with ops.plain_kernels():
-            want = s(*requests[0], x_init=x_init, noise=noise)
-        plain = ops.launch_counts()
-        if with_kernels != per_sample or any(plain.values()):
-            raise AssertionError(f"{tag} sample: launches {with_kernels} with kernels, "
-                                 f"{plain} with plain versions forced")
-        diffs[tag] = float((got - want).abs().max())
-        runs[tag] = {"launches_kernels": with_kernels, "launches_plain": plain,
-                     "max_abs_sample": float(want.abs().max())}
-        if not diffs[tag] <= SAMPLE_TOL[tag]:
-            raise AssertionError(f"{tag} sample, kernels vs plain: max abs diff "
-                                 f"{diffs[tag]:.3g} > {SAMPLE_TOL[tag]}")
+        _, diffs[tag], runs[tag] = sample_vs_plain(tag, s, requests[0], x_init, noise,
+                                                   SAMPLE_TOL[tag])
     print(json.dumps({"sample_kernel_vs_plain_max_abs": diffs, "tolerance": SAMPLE_TOL,
                       "runs": runs}), flush=True)
 
@@ -1332,7 +1612,7 @@ def main(argv=None) -> int:
 
     # every kernel ran on a path: the main path, the volume or the training phase
     runs = {"launches": launches, "volume_launches": volume["launches"],
-            "train_launches": train["launches"]}
+            "train_launches": train["launches"], "int8_launches": int8["launches"]}
     counted = {k: runs[COUNTED_IN.get(k, "launches")][k] for k in ops.KERNEL_WRAPPERS}
     idle = [k for k, n in counted.items() if n <= 0]
     if idle:
@@ -1341,14 +1621,22 @@ def main(argv=None) -> int:
                  for k in ops.KERNEL_WRAPPERS if volume["launches"][k]]
     print(json.dumps({"card": card, "volume_phase_kernels": on_volume}), flush=True)
     on_train = [kernel_summary(k, rows, train["launches"][k], "train_launches")
-                for k in ops.KERNEL_WRAPPERS]
+                for k in ops.KERNEL_WRAPPERS if train["launches"][k]]
     print(json.dumps({"card": card, "training_phase_kernels": on_train}), flush=True)
+    on_int8 = {path: [kernel_summary(k, rows, n, path) for k, n in run.items() if n]
+               for path, run in (("int8_launches", int8["launches"]),
+                                 ("int8_volume_launches", volume["int8_launches"]))}
+    print(json.dumps({"card": card, "int8_leg_kernels": on_int8}), flush=True)
     kernels = [kernel_summary(k, rows, counted[k]) for k in ops.KERNEL_WRAPPERS]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build": build, "rows": rows, "kernels": kernels,
                        "volume_phase_kernels": on_volume, "training_phase_kernels": on_train,
-                       "volume": {k: v for k, v in volume.items() if k != "log"},
+                       "int8_leg_kernels": on_int8,
+                       "int8": {k: v for k, v in int8.items() if k != "log"}
+                       | {"calibs": [c.to_json_dict() for c in int8["calibs"]]},
+                       "volume": {k: v for k, v in volume.items()
+                                  if k not in ("log", "int8_log")},
                        "training": {k: v for k, v in train.items() if k != "log"},
                        "nvcc": {k: v["log"] for k, v in built.items()}}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

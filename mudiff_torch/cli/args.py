@@ -3,13 +3,14 @@
 The port's own copy of the ``test_volume`` mode of
 ``mudiff_tpu/cli/args.py`` (reference engine/test_volume.py:302-359):
 every flag name and default is kept, backed by the port's
-``MuDiffConfig``.  Two differences, both deliberate:
-
-* ``--attn`` resolves as the flag, else ``bf16``.  ``MUDIFF_ATTN`` is
-  not read: the port has no environment knobs (ROADMAP.md).
-* ``--use_int8`` keeps its serving default of on, but int8 serving is
-  not ported yet: loading the generators then raises
-  ``NotImplementedError``, and ``--bf16`` serves exactly.
+``MuDiffConfig``.  ``--use_int8`` is on by default, as in the JAX
+package: the generators serve W8A8 (kernel K4) with the static
+calibration sidecars beside the checkpoints when they exist, else with
+dynamic scales; ``--int8_static`` requires the sidecars,
+``--int8_dynamic`` ignores them, and ``--bf16`` serves exactly in bf16.
+One difference, deliberate: ``--attn`` resolves as the flag, else
+``bf16``; ``MUDIFF_ATTN`` is not read, as the port has no environment
+knobs (ROADMAP.md).
 
 Flags with no meaning on one card (the legacy DDP flags, ``--dp``,
 ``--fsdp``, ``--gpu_chose``, the training flags) are accepted and
@@ -127,13 +128,14 @@ def build_parser() -> argparse.ArgumentParser:
     # bf16 compute is the default; --no_bf16 forces fp32 compute.
     p.add_argument("--use_bf16", action="store_true", default=True)
     p.add_argument("--no_bf16", dest="use_bf16", action="store_false")
-    # W8A8 int8 serving: default on for the serving CLIs, as in the JAX
-    # package; not ported yet, so loading the generators raises unless
-    # --bf16 (exact bf16 serving) is given.
+    # W8A8 int8 serving (kernel K4): default on for the serving CLIs, as
+    # in the JAX package; --bf16 serves exactly in bf16.
     p.add_argument("--use_int8", action="store_true", default=True)
     p.add_argument("--bf16", dest="use_int8", action="store_false",
                    help="exact bf16 serving (disable the int8 path)")
-    # static / dynamic activation scales of the int8 path (not ported yet)
+    # static activation scales from the int8_calib_g{1,2}.json sidecars
+    # (required with --int8_static, used when present by default) or
+    # dynamic per-example scales (--int8_dynamic)
     p.add_argument("--int8_static", dest="int8_static",
                    action="store_true", default=None)
     p.add_argument("--int8_dynamic", dest="int8_static",

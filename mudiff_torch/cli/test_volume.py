@@ -2,12 +2,16 @@
 prediction on the card (the counterpart of
 ``mudiff_tpu/cli/test_volume.py``; reference engine/test_volume.py:302-373).
 
-    python -m mudiff_torch.cli.test_volume --bf16 --attn flash \\
+    python -m mudiff_torch.cli.test_volume --attn flash \\
         --ckpt_dir CKPT --input_flair F.nii.gz --input_t2 T2.nii.gz \\
         --input_t1 T1.nii.gz --output_dir OUT [architecture flags]
 
 ``CKPT`` holds ``gen_diffusive_{1,2}.pt`` (``mudiff_torch.convert.
-export_generators`` writes them from a JAX checkpoint).
+export_generators`` writes them from a JAX checkpoint).  The generators
+serve W8A8 int8 by default, with the static scales of the sidecars
+``CKPT/int8_calib_g{1,2}.json`` when both exist (``--int8_static``
+requires them, ``--int8_dynamic`` ignores them); ``--bf16`` serves
+exactly in bf16.
 """
 
 from mudiff_torch.cli.args import parse_config

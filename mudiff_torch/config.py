@@ -84,9 +84,10 @@ class MuDiffConfig:
     # parsed + printed but never applied in the reference loss
     # (engine/train.py:1006 vs :1409) — kept for flag parity.
     lambda_adv: float = 1.0
-    # The training, int8 and parallelism fields below are kept so that a
-    # config round-trips between the two packages; the port does not read
-    # them yet (ROADMAP.md), and NCSNppGenerator raises on use_int8.
+    # The training and parallelism fields below are kept so that a config
+    # round-trips between the two packages; the port does not read them yet
+    # (ROADMAP.md).  use_int8 and int8_static select W8A8 serving and its
+    # static scales (models/generator.py, infer/generators.py).
     use_grad_checkpoint: bool = False
     grad_checkpoint_policy: str = "blocks"
     use_bf16: bool = True          # bf16 compute

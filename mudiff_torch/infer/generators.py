@@ -8,6 +8,11 @@ The counterpart of ``mudiff_tpu/infer/slice_test.py:54-98``
 written by ``torch.save`` (``save_generators`` here, or
 ``convert.export_generators`` from a JAX checkpoint), loaded with
 ``weights_only=True`` and ``strict=True``.
+
+Under ``config.use_int8`` (the serving CLI's default) the generators
+serve W8A8 through kernel K4, with the static calibration sidecars
+``int8_calib_g{1,2}.json`` under ``ckpt_dir`` when ``config.int8_static``
+allows them (``mudiff_tpu/infer/slice_test.py:54-98``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from mudiff_torch.config import MuDiffConfig
 from mudiff_torch.convert import GENERATOR_FILES
+from mudiff_torch.infer.calibrate import calib_sidecar_paths, load_calib
 from mudiff_torch.models.generator import NCSNppGenerator
 from mudiff_torch.sampler import serving_device
 
@@ -44,17 +50,28 @@ def load_generators(config: MuDiffConfig, ckpt_dir: Optional[str],
     """G1 and G2 with their trained weights, in inference mode on
     ``device`` (default ``"cuda"``; raises without a card).  ``attn`` is
     the attention lowering; ``compute_dtype`` defaults to bf16, or fp32
-    when ``config.use_bf16`` is off."""
-    if config.use_int8:
-        raise NotImplementedError(
-            "int8 serving is not ported yet (ROADMAP.md lists it); "
-            "serve exactly in bf16 with --bf16 (use_int8=False)")
+    when ``config.use_bf16`` is off.
+
+    int8 (``config.use_int8``): ``config.int8_static`` None serves the
+    sidecars' static scales when both exist under ``ckpt_dir``, else
+    dynamic scales; True requires the sidecars (``FileNotFoundError``);
+    False serves dynamic scales whatever exists."""
     device = serving_device(device, "load_generators")
     dtype = compute_dtype or compute_dtype_of(config)
+    calibs = (None, None)
+    if config.use_int8 and config.int8_static is not False:
+        paths = calib_sidecar_paths(ckpt_dir) if ckpt_dir else ("", "")
+        if all(os.path.isfile(p) for p in paths):
+            calibs = tuple(load_calib(p) for p in paths)
+        elif config.int8_static:
+            raise FileNotFoundError(
+                f"int8_static requires the calibration sidecars {paths[0]} / {paths[1]} "
+                "(mudiff_torch.infer.calibrate: calibrate_sampler, save_calib)")
     gens = []
-    for adaptive, name in zip((False, True), GENERATOR_FILES):
+    for adaptive, name, calib in zip((False, True), GENERATOR_FILES, calibs):
         path = checkpoint_path(ckpt_dir, name, fallback_dir)
-        g = NCSNppGenerator(config, adaptive=adaptive, attn=attn, dtype=dtype)
+        g = NCSNppGenerator(config, adaptive=adaptive, attn=attn, dtype=dtype,
+                            int8_calib=calib)
         g.load_state_dict(torch.load(path, map_location="cpu", weights_only=True),
                           strict=True)
         g.requires_grad_(False)

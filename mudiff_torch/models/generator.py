@@ -16,12 +16,19 @@ conv3x3 -> float32 tanh head.
 Submodules carry the JAX package's names, so ``convert.py`` maps a flax
 tree onto ``state_dict`` keys by rule.  Branches the recipe does not
 take raise ``NotImplementedError``; ROADMAP.md queues them.
+
+Under ``config.use_int8`` and outside training mode, the forward runs in
+an ``int8_scope`` (``mudiff_tpu/models/generator.py:93-130``): every
+conv that ``int8_conv_routed`` admits at the generator's threshold runs
+kernel K4 (W8A8), with dynamic per-example scales or, given an
+``Int8Calib``, the calibration's static scales, site by site in forward
+order.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -47,10 +54,21 @@ from mudiff_torch.nn.fused_stems import (
 from mudiff_torch.nn.initializers import default_init
 from mudiff_torch.nn.layers import Conv3x3, Dense, get_timestep_embedding, pixel_norm
 from mudiff_torch.ops import KERNEL_WRAPPERS
+from mudiff_torch.ops.int8_conv import (
+    Int8Calib,
+    Int8WeightCache,
+    int8_conv_routed,
+    int8_scope,
+    recording,
+)
 
 _SQRT2 = math.sqrt(2.0)
 _GATES = ("feat_att1_c12", "feat_att2_c12", "feat_att1_c23",
           "feat_att2_c23", "feat_att1_c31", "feat_att2_c31")
+
+# Whether the fused stem conv2 runs int8 when neither a calibration nor
+# the constructor says (``mudiff_tpu/nn/fused_stems.py:196-204``).
+STEMS_INT8_DEFAULT = True
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -72,8 +90,6 @@ def _check_config(cfg: MuDiffConfig, num_conditions: int) -> None:
         raise _unsupported("num_channels > 1")
     if num_conditions != 3:
         raise _unsupported("num_conditions=2")
-    if cfg.use_int8:
-        raise _unsupported("int8 serving")
     if not cfg.fir:
         raise _unsupported("fir=False resampling")
 
@@ -105,12 +121,23 @@ class NCSNppGenerator(nn.Module):
     ``dtype`` the compute dtype (parameters stay float32).  Inputs are
     NHWC; ``forward(x, c1, c2, c3, t, z[, pseudo_target])`` returns the
     float32 prediction of x_0.
+
+    int8 serving (``config.use_int8``): ``int8_calib`` gives static
+    scales (None: dynamic); ``int8_min_ch`` is the routing threshold
+    (default ``max(64, 2 * nf)``; a calibration's own wins);
+    ``int8_stems`` routes the fused stem conv2 (a calibration's recorded
+    bit wins, then this argument, then ``STEMS_INT8_DEFAULT``).  All
+    three are fixed here, so a calibration is recorded and served with
+    the same routing.
     """
 
     def __init__(self, config: MuDiffConfig, adaptive: bool = False,
                  num_conditions: int = 3, attn: str = "einsum",
                  dtype: torch.dtype = torch.float32, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 int8_calib: Optional[Int8Calib] = None,
+                 int8_min_ch: Optional[int] = None,
+                 int8_stems: Optional[bool] = None):
         super().__init__()
         cfg = config
         _check_config(cfg, num_conditions)
@@ -118,6 +145,14 @@ class NCSNppGenerator(nn.Module):
         self.adaptive = adaptive
         self.dtype = dtype
         nf = cfg.num_channels_dae
+        self.int8_calib = int8_calib
+        if int8_calib is not None:
+            self.int8_min_ch, self.int8_stems = int8_calib.min_ch, bool(int8_calib.stems)
+        else:
+            self.int8_min_ch = int8_min_ch or max(64, 2 * nf)
+            self.int8_stems = STEMS_INT8_DEFAULT if int8_stems is None else bool(int8_stems)
+        self._int8_caches = {"stems": Int8WeightCache() if self.int8_stems else None,
+                             "gates": Int8WeightCache(), "weights": Int8WeightCache()}
         ch_mult = cfg.ch_mult
         nrb = cfg.num_res_blocks
         self.all_resolutions = [cfg.image_size // (2 ** i) for i in range(len(ch_mult))]
@@ -212,11 +247,36 @@ class NCSNppGenerator(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
+    def int8_serving(self) -> bool:
+        """Whether a forward now runs the routed convs on K4."""
+        return self.config.use_int8 and not self.training
+
+    def int8_sites(self) -> List[Tuple[int, int]]:
+        """The (cin, cout) of every conv a forward routes to K4, in forward
+        order: the list a calibration must hold (empty unless serving int8)."""
+        if not self.int8_serving():
+            return []
+
+        def routed(cin, cout):
+            return [(cin, cout)] if int8_conv_routed(cin, cout, self.int8_min_ch) else []
+
+        nf = self.config.num_channels_dae
+        n_stems = 4  # x and three conditions (G2's pseudo-GAP stem stays on K1)
+        sites = routed(n_stems * nf, n_stems * nf) if self.int8_stems else []
+        if self.adaptive:
+            sites += routed(3 * nf, len(_GATES) * nf) + routed(3 * nf, 3 * nf)
+        for _, name in self._trunk:
+            for m in getattr(self, name).modules():
+                if isinstance(m, Conv3x3):
+                    sites += routed(m.in_ch, m.out_ch)
+        return sites + routed(self.final_conv.in_ch, self.final_conv.out_ch)
+
     def kernel_launches_per_forward(self) -> Dict[str, int]:
         """Kernel launches one forward makes, from the module structure:
-        every Conv3x3 module runs K1 once, except the stems' per-stem
-        convs, which run fused (G1: 2 launches, G2: 5); every
-        AttnBlockpp in ``flash`` mode runs K3 once.  Every wrapper of
+        every Conv3x3 module runs one conv, except the stems' per-stem
+        convs, which run fused (G1: 2 launches, G2: 5); the convs of
+        ``int8_sites`` run K4 and the rest K1; every AttnBlockpp in
+        ``flash`` mode runs K3 once.  Every wrapper of
         ``ops.KERNEL_WRAPPERS`` has a key (the backward kernels 0)."""
         counts = dict.fromkeys(KERNEL_WRAPPERS, 0)
         stem_roots = ["encoder_x", "pseudo_gap", *_GATES] + [
@@ -232,6 +292,8 @@ class NCSNppGenerator(nn.Module):
             if isinstance(m, AttnBlockpp) and m.attn == "flash":
                 counts["flash_attn"] += 1
         counts["conv3x3"] += 5 if self.adaptive else 2
+        counts["int8_conv3x3"] = len(self.int8_sites())
+        counts["conv3x3"] -= counts["int8_conv3x3"]
         return counts
 
     def forward(self, x: torch.Tensor, cond1: torch.Tensor, cond2: torch.Tensor,
@@ -239,6 +301,16 @@ class NCSNppGenerator(nn.Module):
                 pseudo_target: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.training and self.config.dropout > 0:
             raise _unsupported("dropout > 0 in training")
+        # The scope covers the whole forward; in training mode it is off
+        # (int8 is inference only: no straight-through estimator).
+        with int8_scope(self.int8_serving(), min_ch=self.int8_min_ch,
+                        calib=self.int8_calib) as scope:
+            out = self._forward(x, cond1, cond2, cond3, time_cond, z, pseudo_target)
+        if scope.enabled and not recording():
+            scope.check_consumed()
+        return out
+
+    def _forward(self, x, cond1, cond2, cond3, time_cond, z, pseudo_target):
         cfg = self.config
         dt = self.dtype
         act = F.silu
@@ -258,23 +330,25 @@ class NCSNppGenerator(nn.Module):
         if not self.adaptive:
             stems = [self.encoder_x] + [getattr(self, f"encoder_c{i + 1}")
                                         for i in range(len(conds))]
-            h = fused_convfeat_apply(torch.cat([x] + conds, dim=-1), stems, act, dt)
+            h = fused_convfeat_apply(torch.cat([x] + conds, dim=-1), stems, act, dt,
+                                     self._int8_caches["stems"])
         else:
             if pseudo_target is None:
                 raise ValueError("G2 needs pseudo_target (G1's prediction)")
             pcs = [getattr(self, f"encoder_c{i + 1}") for i in range(len(conds))]
             x_feat, feats, _ = fused_adaptive_encode(
                 x, conds, pseudo_target.to(dt), self.encoder_x, pcs,
-                self.pseudo_gap, act, dt,
+                self.pseudo_gap, act, dt, self._int8_caches["stems"],
             )
             allc = torch.cat(feats, dim=-1)
             a1_12, a2_12, a1_23, a2_23, a1_31, a2_31 = fused_gate_convs(
-                allc, [getattr(self, n) for n in _GATES], dt
+                allc, [getattr(self, n) for n in _GATES], dt, self._int8_caches["gates"]
             )
             c1, c2, c3 = feats
             c1_att, c2_att, c3_att = fused_weight_convs(
                 [a1_12 * c1, a1_23 * c2, a1_31 * c3],
                 [getattr(self, f"feat_weight_c{i + 1}") for i in range(3)], dt,
+                self._int8_caches["weights"],
             )
             fused12 = a2_12 * c1_att + (1 - a2_12) * c2
             fused23 = a2_23 * c2_att + (1 - a2_23) * c3

@@ -13,11 +13,18 @@ package's names (``encoder_x``, ``encoder_c{i}``, ``pseudo_gap``,
 ``feat_att*``, ``feat_weight_c*``) and compute nothing; the functions
 below assemble the fused kernels from them on every call.  Every fused
 conv is a 3x3 stride-1 conv, so it runs kernel K1 on CUDA tensors.
+
+Under int8 serving (``mudiff_tpu/nn/fused_stems.py:206-240``) a fused
+conv given an ``Int8WeightCache`` runs K4 when the enclosing int8 scope
+routes its shape: the stem conv2 when the generator's stems bit is on
+(its cache is then passed), the G2 gate and weight convs always.  Stem
+conv1, the pseudo-GAP branch and the head stay on K1.  K4 quantizes the
+fp32 fused kernel, built only when its cache is stale.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,6 +32,12 @@ import torch.nn as nn
 from mudiff_torch.nn.blocks import AdaptiveGroupNorm, _num_groups, group_norm
 from mudiff_torch.nn.layers import Conv3x3, Dense
 from mudiff_torch.ops import conv3x3
+from mudiff_torch.ops.int8_conv import (
+    Int8WeightCache,
+    int8_conv_routed,
+    int8_enabled,
+    routed_conv,
+)
 
 Act = Callable[[torch.Tensor], torch.Tensor]
 
@@ -81,11 +94,27 @@ def block_diag_conv2(kernels: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
-def _conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-          dtype: torch.dtype) -> torch.Tensor:
-    """A fused 3x3 stride-1 conv in ``dtype`` with a float32 bias (K1)."""
-    return conv3x3(x.to(dtype).contiguous(), kernel.to(dtype).contiguous(),
-                   bias.to(torch.float32).contiguous())
+def _conv(x: torch.Tensor, build: Callable[[Sequence[torch.Tensor]], torch.Tensor],
+          sources: Sequence[torch.Tensor], bias: torch.Tensor, dtype: torch.dtype,
+          int8_cache: Optional[Int8WeightCache] = None) -> torch.Tensor:
+    """A fused 3x3 stride-1 conv in ``dtype`` with a float32 bias, its
+    fp32 kernel ``build(sources)`` (whose Cout is the sources' summed):
+    K1 on the kernel cast to ``dtype``, or K4 on the fp32 kernel when
+    ``int8_cache`` is given and the int8 scope routes the shape."""
+    x = x.to(dtype).contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    cout = sum(w.shape[-1] for w in sources)
+    if int8_cache is not None and int8_enabled() and int8_conv_routed(x.shape[-1], cout):
+        return routed_conv(x, cout, lambda: build(sources), sources, bias, dtype, int8_cache)
+    return conv3x3(x, build(sources).to(dtype).contiguous(), bias)
+
+
+def _single(kernels: Sequence[torch.Tensor]) -> torch.Tensor:
+    return kernels[0]
+
+
+def _concat_cout(kernels: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat(list(kernels), dim=-1)
 
 
 def stacked_group_norm(h: torch.Tensor, n_stems: int,
@@ -95,18 +124,20 @@ def stacked_group_norm(h: torch.Tensor, n_stems: int,
 
 
 def fused_convfeat_apply(stacked: torch.Tensor, params: List[ConvFeatParams],
-                         act: Act, dtype: torch.dtype) -> torch.Tensor:
+                         act: Act, dtype: torch.dtype,
+                         stems_int8: Optional[Int8WeightCache] = None) -> torch.Tensor:
     """N ConvFeatBlocks in one pass.  stacked: (B,H,W,N) 1-channel inputs;
-    returns (B,H,W,N*F), stem-major.  Two K1 launches."""
+    returns (B,H,W,N*F), stem-major.  Two launches: conv1 on K1, conv2 on
+    K1 or (``stems_int8``) K4."""
     n = len(params)
     f = params[0].conv1.out_ch
-    k1 = block_diag_conv1([p.conv1.weight for p in params])
-    k2 = block_diag_conv2([p.conv2.weight for p in params])
+    w1 = [p.conv1.weight for p in params]
+    w2 = [p.conv2.weight for p in params]
     b1 = torch.cat([p.conv1.bias for p in params])
     b2 = torch.cat([p.conv2.bias for p in params])
-    h = _conv(stacked, k1, b1, dtype)
+    h = _conv(stacked, block_diag_conv1, w1, b1, dtype)
     h = act(stacked_group_norm(h, n, _num_groups(f)))
-    return _conv(h, k2, b2, dtype)
+    return _conv(h, block_diag_conv2, w2, b2, dtype, stems_int8)
 
 
 def fused_adaptive_encode(
@@ -118,8 +149,10 @@ def fused_adaptive_encode(
     pgap: ConvBlockGAPParams,
     act: Act,
     dtype: torch.dtype,
+    stems_int8: Optional[Int8WeightCache] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
-    """G2 condition encoding, fused (three K1 launches).
+    """G2 condition encoding, fused (three launches; the second conv of the
+    four non-pseudo stems on K4 with ``stems_int8``).
 
     Equals pseudo_weight = ConvBlockGAP(pseudo), x_feat = ConvFeatBlock(x),
     feats[i] = ConvBlock(conds[i], pseudo_weight); all five Cin=1 first
@@ -133,16 +166,14 @@ def fused_adaptive_encode(
     n = len(stems)
     stacked = torch.cat(stems, dim=-1)
 
-    k1 = block_diag_conv1(
-        [px.conv1.weight] + [p.conv1.weight for p in pcs] + [pgap.conv1.weight]
-    )
+    w1 = [px.conv1.weight] + [p.conv1.weight for p in pcs] + [pgap.conv1.weight]
     b1 = torch.cat([px.conv1.bias] + [p.conv1.bias for p in pcs] + [pgap.conv1.bias])
-    h = _conv(stacked, k1, b1, dtype)
+    h = _conv(stacked, block_diag_conv1, w1, b1, dtype)
     h = stacked_group_norm(h, n, _num_groups(f))
 
     # pseudo branch first: the GAP style vector the condition blocks need
     hp = act(h[..., n_c * f + f:])
-    hp = _conv(hp, pgap.conv2.weight, pgap.conv2.bias, dtype)
+    hp = _conv(hp, _single, [pgap.conv2.weight], pgap.conv2.bias, dtype)
     pw = hp.mean(dim=(1, 2))
     pseudo_weight = pw @ pgap.fc.weight.to(pw.dtype).t() + pgap.fc.bias.to(pw.dtype)
 
@@ -156,30 +187,31 @@ def fused_adaptive_encode(
         parts.append(act(gamma[:, None, None, :] * hi + beta[:, None, None, :]))
 
     h4 = torch.cat(parts, dim=-1)
-    k2 = block_diag_conv2([px.conv2.weight] + [p.conv2.weight for p in pcs])
+    w2 = [px.conv2.weight] + [p.conv2.weight for p in pcs]
     b2 = torch.cat([px.conv2.bias] + [p.conv2.bias for p in pcs])
-    out = _conv(h4, k2, b2, dtype)
+    out = _conv(h4, block_diag_conv2, w2, b2, dtype, stems_int8)
     x_feat = out[..., :f]
     feats = [out[..., (i + 1) * f:(i + 2) * f] for i in range(n_c)]
     return x_feat, feats, pseudo_weight
 
 
-def fused_gate_convs(allc: torch.Tensor, gates: List[Conv3x3],
-                     dtype: torch.dtype) -> List[torch.Tensor]:
+def fused_gate_convs(allc: torch.Tensor, gates: List[Conv3x3], dtype: torch.dtype,
+                     int8_cache: Optional[Int8WeightCache] = None) -> List[torch.Tensor]:
     """N gate convs on one input: kernels concatenated along Cout, one K1
-    launch; returns the sigmoided per-gate outputs."""
+    (or K4) launch; returns the sigmoided per-gate outputs."""
     f = gates[0].out_ch
-    k = torch.cat([g.weight for g in gates], dim=-1)
+    ws = [g.weight for g in gates]
     b = torch.cat([g.bias for g in gates])
-    g = torch.sigmoid(_conv(allc, k, b, dtype))
+    g = torch.sigmoid(_conv(allc, _concat_cout, ws, b, dtype, int8_cache))
     return [g[..., i * f:(i + 1) * f] for i in range(len(gates))]
 
 
 def fused_weight_convs(inputs: List[torch.Tensor], convs: List[Conv3x3],
-                       dtype: torch.dtype) -> List[torch.Tensor]:
-    """N same-shape convs on N inputs as one block-diagonal K1 launch."""
+                       dtype: torch.dtype,
+                       int8_cache: Optional[Int8WeightCache] = None) -> List[torch.Tensor]:
+    """N same-shape convs on N inputs as one block-diagonal K1 (or K4) launch."""
     f = convs[0].out_ch
-    k = block_diag_conv2([c.weight for c in convs])
+    ws = [c.weight for c in convs]
     b = torch.cat([c.bias for c in convs])
-    out = _conv(torch.cat(inputs, dim=-1), k, b, dtype)
+    out = _conv(torch.cat(inputs, dim=-1), block_diag_conv2, ws, b, dtype, int8_cache)
     return [out[..., i * f:(i + 1) * f] for i in range(len(convs))]

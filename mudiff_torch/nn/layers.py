@@ -27,6 +27,12 @@ import torch.nn.functional as F
 
 from mudiff_torch.nn.initializers import Init, default_init, stylegan_dense_init
 from mudiff_torch.ops import conv3x3
+from mudiff_torch.ops.int8_conv import (
+    Int8WeightCache,
+    int8_conv_routed,
+    int8_enabled,
+    routed_conv,
+)
 
 
 class Conv3x3(nn.Module):
@@ -36,6 +42,13 @@ class Conv3x3(nn.Module):
     added to the kernel's fp32 accumulator and the sum rounded once, as
     the JAX package's GEMM conv does (its default ``nn.Conv`` rounds the
     conv to the compute dtype before adding the bias).
+
+    Inside an enabled ``int8_scope``, outside training mode, a conv that
+    ``int8_conv_routed(in_ch, out_ch)`` admits runs K4 instead
+    (``ops/int8_conv.py``, as ``mudiff_tpu/nn/layers.py:114-130``): the
+    fp32 parameter is quantized (and cached), never its compute-dtype
+    copy, and the input goes in as it arrives.  The parameters are the
+    same in both modes, so any checkpoint serves quantized.
     """
 
     def __init__(self, in_ch: int, out_ch: int, init_scale: float = 1.0,
@@ -46,6 +59,7 @@ class Conv3x3(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(3, 3, in_ch, out_ch, device=device))
         self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
+        self._int8 = Int8WeightCache()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         default_init(self.init_scale)(
@@ -55,6 +69,10 @@ class Conv3x3(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (not self.training and int8_enabled()
+                and int8_conv_routed(self.in_ch, self.out_ch)):
+            return routed_conv(x, self.out_ch, lambda: self.weight, (self.weight,),
+                               self.bias, self.dtype, self._int8)
         return conv3x3(
             x.to(self.dtype).contiguous(),
             self.weight.to(self.dtype).contiguous(),

@@ -1,8 +1,8 @@
 """Ops of the port: the FIR family (plain PyTorch) and the hand-written
 CUDA kernels K1 (``conv3x3``), K2a (``fir_down2``), K2b (``fir_up2``), K3
-(``flash_attn``) and K3's backward (``flash_attn_bwd_dkv``,
-``flash_attn_bwd_dq``).  Each wrapper is differentiable: K2 twice, K1 and
-K3 once."""
+(``flash_attn``), K3's backward (``flash_attn_bwd_dkv``,
+``flash_attn_bwd_dq``) and K4 (``int8_conv3x3``, W8A8, inference only).
+The other wrappers are differentiable: K2 twice, K1 and K3 once."""
 
 from mudiff_torch.ops._dispatch import plain_kernels, record_calls
 from mudiff_torch.ops.conv3x3 import conv3x3, conv3x3_plain
@@ -16,6 +16,7 @@ from mudiff_torch.ops.flash_attn import (
     flash_attn_plain,
     row_stats_plain,
 )
+from mudiff_torch.ops.int8_conv import int8_conv3x3, int8_conv3x3_plain
 from mudiff_torch.ops.upfirdn2d import (
     conv_downsample_2d,
     downsample_2d,
@@ -26,7 +27,7 @@ from mudiff_torch.ops.upfirdn2d import (
 
 KERNEL_WRAPPERS = {"conv3x3": conv3x3, "fir_down2": fir_down2, "fir_up2": fir_up2,
                    "flash_attn": flash_attn, "flash_attn_bwd_dkv": flash_attn_bwd_dkv,
-                   "flash_attn_bwd_dq": flash_attn_bwd_dq}
+                   "flash_attn_bwd_dq": flash_attn_bwd_dq, "int8_conv3x3": int8_conv3x3}
 
 
 def reset_launch_counts() -> None:

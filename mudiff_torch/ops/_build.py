@@ -30,6 +30,7 @@ SOURCES = {
     "fir": "fir_kernels.cu",
     "flash_attn": "flash_attn_kernel.cu",
     "flash_attn_bwd": "flash_attn_bwd_kernel.cu",
+    "int8_conv": "int8_conv_kernel.cu",
 }
 
 NVCC_FLAGS = [

@@ -4,8 +4,10 @@
 to ``"cuda"`` and raises without one; pass ``"cpu"`` explicitly to run
 the plain versions), in inference mode with the bf16 compute dtype and
 bf16-score attention by default, the exact-bf16 serving mode of the JAX
-package's ``bench.py --bf16``.  A ``Sampler`` call runs the T-step
-reverse sampler (``diffusion/sampling.py``) on NHWC condition images.
+package's ``bench.py --bf16``; with ``config.use_int8`` they serve W8A8
+through kernel K4, with dynamic or static scales (``bench.py:50-83``).
+A ``Sampler`` call runs the T-step reverse sampler
+(``diffusion/sampling.py``) on NHWC condition images.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from mudiff_torch.config import MuDiffConfig
 from mudiff_torch.diffusion.sampling import sample_from_model
 from mudiff_torch.diffusion.schedule import PosteriorCoefficients
 from mudiff_torch.models.generator import NCSNppGenerator
+from mudiff_torch.ops.int8_conv import Int8Calib
 
 
 def serving_device(device=None, what: str = "build_sampler") -> torch.device:
@@ -73,24 +76,44 @@ class Sampler:
 
 def build_sampler(config: MuDiffConfig, device=None, attn: str = "bf16",
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  generator: Optional[torch.Generator] = None) -> Sampler:
+                  generator: Optional[torch.Generator] = None,
+                  int8_calibs: Optional[Tuple[Int8Calib, Int8Calib]] = None,
+                  int8_static: bool = False) -> Sampler:
     """G1 + G2 + posterior tables on ``device`` (default ``"cuda"``).
 
     ``attn`` is the attention lowering of both generators: ``"bf16"``
     (the default), ``"einsum"`` or ``"flash"`` (kernel K3).
 
+    With ``config.use_int8`` the routed convs run W8A8: with the static
+    scales of ``int8_calibs`` (G1's, G2's) when given; else, with
+    ``int8_static``, with unit-scale calibrations of the real site lists
+    (``calibrate.synthetic_calib``: the static mode's compute, for
+    throughput only); else with dynamic scales.
+
     Weights are drawn from the JAX package's initial distributions with
     ``generator`` (a CPU ``torch.Generator``; load trained weights with
     ``sampler.g1.load_state_dict``, e.g. from ``convert.params_from_flax``).
     """
+    from mudiff_torch.infer.calibrate import synthetic_calib
+
     device = serving_device(device)
-    gens = [
-        NCSNppGenerator(config, adaptive=adaptive, attn=attn,
-                        dtype=compute_dtype, generator=generator)
-        for adaptive in (False, True)
-    ]
-    for g in gens:
-        g.requires_grad_(False)
-        g.eval()
-        g.to(device)
+    if (int8_calibs is not None or int8_static) and not config.use_int8:
+        raise ValueError("int8 calibrations need config.use_int8")
+
+    def build(calibs):
+        gens = [NCSNppGenerator(config, adaptive=adaptive, attn=attn, dtype=compute_dtype,
+                                generator=generator, int8_calib=calib)
+                for adaptive, calib in zip((False, True), calibs)]
+        for g in gens:
+            g.requires_grad_(False)
+            g.eval()
+            g.to(device)
+        return gens
+
+    gens = build(int8_calibs or (None, None))
+    if int8_calibs is None and int8_static:
+        calibrated = build([synthetic_calib(g) for g in gens])
+        for g, c in zip(gens, calibrated):
+            c.load_state_dict(g.state_dict())
+        gens = calibrated
     return Sampler(config, gens[0], gens[1], device, compute_dtype)

@@ -1,9 +1,10 @@
 """The port's ``test_volume`` CLI against the JAX package's, on the CPU.
 
 Same option strings, defaults and ``--attn`` choices as
-``mudiff_tpu.cli.args.build_parser("test_volume")``, with the port's two
-documented differences: ``MUDIFF_ATTN`` is not read, and int8 serving
-(the serving default) raises until it is ported, while ``--bf16`` serves.
+``mudiff_tpu.cli.args.build_parser("test_volume")``, with the port's one
+documented difference: ``MUDIFF_ATTN`` is not read.  int8 serving is
+the default and ``--bf16`` serves exactly (``test_torch_port_int8.py``
+holds the int8 path).
 """
 
 import numpy as np
@@ -59,9 +60,13 @@ def volumes(tmp_path_factory):
 
 
 def test_int8_serving_raises_until_ported(volumes):
+    """int8 serving is ported: the CLI's default (no --bf16) serves it."""
     d, inputs = volumes
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        test_volume.main(ARCH + inputs + ["--ckpt_dir", str(d / "ckpt")], device="cpu")
+    out = test_volume.main(ARCH + inputs + [
+        "--ckpt_dir", str(d / "ckpt"), "--output_dir", str(d / "int8"),
+        "--slice_half_range", "1", "--test_batch_size", "2"], device="cpu")
+    v = nifti.load(out).get_fdata()
+    assert v.shape == (24, 24, 9) and np.isfinite(v).all() and v[:, :, 3:6].std() > 0
 
 
 def test_missing_input_and_target_are_refused(volumes):

@@ -130,7 +130,7 @@ def test_flash_launches_per_sample_at_the_recipe():
                 for a in (False, True)]
     assert gens[0].kernel_launches_per_forward() == {
         "conv3x3": 45, "fir_down2": 4, "fir_up2": 4, "flash_attn": 1,
-        "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+        "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0, "int8_conv3x3": 0}
     assert gens[1].kernel_launches_per_forward()["flash_attn"] == 1
     s = build_sampler(config.MuDiffConfig(**SMALL), device="cpu", attn="flash",
                       compute_dtype=torch.float32)

@@ -108,9 +108,18 @@ def test_kernel_launches_per_forward_at_nf64():
     # the default einsum attention launches no K3
     bwd = {"flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
     assert g1.kernel_launches_per_forward() == {"conv3x3": 45, "fir_down2": 4, "fir_up2": 4,
-                                                "flash_attn": 0, **bwd}
+                                                "flash_attn": 0, **bwd, "int8_conv3x3": 0}
     assert g2.kernel_launches_per_forward() == {"conv3x3": 48, "fir_down2": 4, "fir_up2": 4,
-                                                "flash_attn": 0, **bwd}
+                                                "flash_attn": 0, **bwd, "int8_conv3x3": 0}
+    # int8 serving: the routed convs (30 / 32 sites) move from K1 to K4
+    cfg8 = cfg.replace(use_int8=True)
+    with torch.device("meta"):
+        g1 = NCSNppGenerator(cfg8, device="meta").eval()
+        g2 = NCSNppGenerator(cfg8, adaptive=True, device="meta").eval()
+    assert g1.kernel_launches_per_forward() == {"conv3x3": 15, "fir_down2": 4, "fir_up2": 4,
+                                                "flash_attn": 0, **bwd, "int8_conv3x3": 30}
+    assert g2.kernel_launches_per_forward() == {"conv3x3": 16, "fir_down2": 4, "fir_up2": 4,
+                                                "flash_attn": 0, **bwd, "int8_conv3x3": 32}
 
 
 def test_config_copy_equals_jax_config():
@@ -125,7 +134,7 @@ def test_config_copy_equals_jax_config():
     "override",
     [{"resblock_type": "ddpm"}, {"resblock_type": "biggan_oneadagn"},
      {"progressive": "output_skip"}, {"progressive": "residual"},
-     {"embedding_type": "fourier"}, {"num_channels": 3}, {"use_int8": True},
+     {"embedding_type": "fourier"}, {"num_channels": 3}, {"fir": False},
      {"progressive_input": "input_skip"}],
 )
 def test_branches_off_the_recipe_raise(override):

@@ -121,10 +121,9 @@ def test_chip_smoke_rows_count_each_path_on_its_own():
     log_main = [("conv3x3", ("a",))] * 3
     log_volume = [("conv3x3", ("a",)), ("conv3x3", ("b",)), ("conv3x3", ("b",))]
     counts = chip_smoke.shape_counts({"launches": log_main, "volume_launches": log_volume})
-    assert counts == {"conv3x3": {("a",): {"launches": 3, "volume_launches": 1,
-                                           "train_launches": 0},
-                                  ("b",): {"launches": 0, "volume_launches": 2,
-                                           "train_launches": 0}}}
+    none = dict.fromkeys(chip_smoke.PATHS, 0)
+    assert counts == {"conv3x3": {("a",): {**none, "launches": 3, "volume_launches": 1},
+                                  ("b",): {**none, "volume_launches": 2}}}
     times = {("a",): 1.0, ("b",): 2.0}
     rows = [{"kernel": "conv3x3", **c, "err_bf16": 0.0, "ms": times[key], "plain_ms": 0.0,
              "library_ms": 0.0, "flop_ms": 0.1, "byte_ms": 0.0}
@@ -167,6 +166,8 @@ def test_chip_smoke_backward_entries_sum_the_training_phase():
     # its backward, in the installed jax package
     ("flash_attn_bwd_dkv", "def _flash_attention_bwd_dkv("),
     ("flash_attn_bwd_dq", "def _flash_attention_bwd_dq("),
+    # XLA-lowered on the TPU, not Pallas
+    ("int8_conv3x3", "def int8_conv3x3("),
 ])
 def test_chip_smoke_names_the_tpu_kernel_each_kernel_replaces(kernel, function):
     sys.path.insert(0, str(REPO))

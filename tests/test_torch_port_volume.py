@@ -185,8 +185,12 @@ def test_predict_volume_is_seeded_and_checks_its_inputs(inputs, tmp_path):
     with pytest.raises(ValueError, match="Missing required input for T2"):
         predict_volume(cfg, {"FLAIR": inputs["FLAIR"], "T1": inputs["T1"]}, str(tmp_path),
                        generators=gens, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_generators(cfg.replace(use_int8=True), str(tmp_path / "ckpt"), device="cpu")
+    # int8 serving: dynamic scales without sidecars, which --int8_static requires
+    g1, _ = load_generators(cfg.replace(use_int8=True), str(tmp_path / "ckpt"), device="cpu")
+    assert g1.config.use_int8 and g1.int8_calib is None
+    with pytest.raises(FileNotFoundError, match="int8_calib_g1.json"):
+        load_generators(cfg.replace(use_int8=True, int8_static=True), str(tmp_path / "ckpt"),
+                        device="cpu")
 
 
 def test_export_generators_from_an_orbax_checkpoint(tmp_path):

@@ -3,7 +3,7 @@
 kernels lie from the same through their plain versions, over seeds and
 beside K1 and K3 faults of known size.  Needs one NVIDIA GPU.
 
-    python3 volume_drift.py [--seeds 0 1 2] [--fp32] [--out FILE.json]
+    python3 volume_drift.py [--seeds 0 1 2] [--fp32 | --int8] [--out FILE.json]
 
 For each seed, ``chip_smoke.py``'s volume phase is run in bf16 (in fp32,
 ``--no_bf16``, with ``--fp32``) with ``--attn flash``: the weights, the three synthetic contrasts and the
@@ -32,6 +32,14 @@ the plain versions (what the smoke holds to ``SAMPLE_TOL``).  For each
 fault the script also prints whether the smoke's per-shape check
 rejects it: K3's (``FLASH_TOL``) at (8, 4096, 256), K1's (``TOL``) at the
 head's shape.  The last line is a summary.
+
+With ``--int8`` only the int8 leg's samples are read, for each seed and
+each mode (dynamic scales; static ones that ``calibrate_sampler``
+records, as ``chip_smoke.int8_samplers`` makes them): the W8A8 sample
+through every kernel, through K4 alone (the others plain, so the
+difference is K4's) and through K1 alone, each against the same sample
+with every plain version forced (what the smoke holds to
+``INT8_SAMPLE_TOL``), and the int8 sample against the bf16 one.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ import chip_smoke as smoke
 
 FAULTS = (0.005, 0.02, 0.08)
 K1_FAULTS = (0.02, 0.08)
-KERNEL_MODULES = ("conv3x3", "fir", "flash_attn")
+KERNEL_MODULES = ("conv3x3", "fir", "flash_attn", "int8_conv")
 
 
 @contextlib.contextmanager
@@ -200,7 +208,48 @@ def sample_readings(cfg, sampler, seed: int, card: str) -> dict:
     return out
 
 
-def seed_readings(cfg, seed: int, card: str, flags=()) -> dict:
+def int8_sample_readings(cfg, sampler, seed: int, card: str) -> dict:
+    """The int8 leg's samples on this seed's weights, conditions and
+    noise, in both modes, under each variant against the same sample with
+    every plain version forced: max abs difference; and the int8 sample
+    against the bf16 one."""
+    import torch
+
+    from mudiff_torch import ops
+
+    g = torch.Generator(smoke.DEVICE).manual_seed(seed + 30)
+    conds = smoke.conditions(g, smoke.DEVICE)
+    shape = (smoke.BATCH, smoke.IMAGE, smoke.IMAGE, 1)
+    x_init = torch.randn(shape, generator=g, device=smoke.DEVICE)
+    noise = [(torch.randn((smoke.BATCH, cfg.nz), generator=g, device=smoke.DEVICE),
+              torch.randn(shape, generator=g, device=smoke.DEVICE))
+             for _ in range(cfg.num_timesteps)]
+    bf16 = sampler(*conds, x_init=x_init, noise=noise)
+    dynamic, static, _ = smoke.int8_samplers(cfg, sampler, seed)
+    variants = {"kernels": contextlib.nullcontext,
+                "K4 alone": lambda: kernels_only("int8_conv3x3"),
+                "K1 alone": lambda: kernels_only("conv3x3")}
+    out = {}
+    for mode, s in (("dynamic", dynamic), ("static", static)):
+        with ops.plain_kernels():
+            ref = s(*conds, x_init=x_init, noise=noise)
+        for label, context in variants.items():
+            ops.reset_launch_counts()
+            with context():
+                got = s(*conds, x_init=x_init, noise=noise)
+            key = f"int8 {mode} sample: {label}"
+            out[key] = {"max_abs": float((got - ref).abs().max()),
+                        "launches": ops.launch_counts()}
+            print(json.dumps({"card": card, "seed": seed, "variant": key, **out[key]}),
+                  flush=True)
+        key = f"int8 {mode} sample vs bf16 sample (kernels)"
+        out[key] = {"max_abs": float((s(*conds, x_init=x_init, noise=noise) - bf16)
+                                     .abs().max())}
+        print(json.dumps({"card": card, "seed": seed, "variant": key, **out[key]}), flush=True)
+    return out
+
+
+def seed_readings(cfg, seed: int, card: str, flags=(), int8: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -212,6 +261,8 @@ def seed_readings(cfg, seed: int, card: str, flags=()) -> dict:
     wgen = torch.Generator(smoke.DEVICE).manual_seed(seed)
     smoke.randomize_(sampler.g1, wgen)
     smoke.randomize_(sampler.g2, wgen)
+    if int8:
+        return int8_sample_readings(cfg, sampler, seed, card)
     extra = ("--seed", str(cfg.seed + seed), *flags)
     mid = smoke.VOLUME_SHAPE[2] // 2
     band = slice(mid - smoke.VOLUME_HALF, mid + smoke.VOLUME_HALF + 1)
@@ -244,8 +295,11 @@ def seed_readings(cfg, seed: int, card: str, flags=()) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
-    parser.add_argument("--fp32", action="store_true",
-                        help="serve in fp32 (--no_bf16) instead of bf16")
+    modes = parser.add_mutually_exclusive_group()
+    modes.add_argument("--fp32", action="store_true",
+                       help="serve in fp32 (--no_bf16) instead of bf16")
+    modes.add_argument("--int8", action="store_true",
+                       help="read the int8 leg's samples (W8A8, dynamic and static scales)")
     parser.add_argument("--out", help="also write every reading here")
     args = parser.parse_args(argv)
 
@@ -264,6 +318,16 @@ def main(argv=None) -> int:
     print(card, flush=True)
     _build.build()
     cfg = brats_recipe(num_channels_dae=smoke.NF, image_size=smoke.IMAGE)
+    if args.int8:
+        readings = {seed: seed_readings(cfg, seed, card, int8=True) for seed in args.seeds}
+        summary = {label: [readings[s][label]["max_abs"] for s in args.seeds]
+                   for label in readings[args.seeds[0]]}
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "dtype": "int8", "readings": readings}, f, indent=1)
+        print(json.dumps({"card": card, "dtype": "int8", "seeds": args.seeds,
+                          "max_abs_by_variant": summary}), flush=True)
+        return 0
     dtype = "fp32" if args.fp32 else "bf16"
     faults = {eps: per_shape_check(eps, dtype) for eps in (0.0, *FAULTS)}
     k1_checks = {label: k1_per_shape_check(fault, dtype)
