@@ -8,7 +8,8 @@ ends the run with a non-zero exit code:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``mudiff_torch/csrc`` (one nvcc per
-   source, all started together) and print the build time;
+   source, all started together), print the build time, and require a
+   GMMA (wgmma) instruction in K4's library (cuobjdump -sass);
 3. serve three requests through ``build_sampler``: G1 + G2 at
    ``brats_recipe(num_channels_dae=64, image_size=256)`` with seeded
    non-trivial weights, each request a batch of 4 slices through the
@@ -21,7 +22,8 @@ ends the run with a non-zero exit code:
    the int8 leg: the same requests served W8A8 (``use_int8``, K4 on
    every routed conv), with dynamic scales and then with the static
    scales that ``calibrate_sampler`` records over CALIB_BATCHES seeded
-   batches, counted as above (K1 and K4 apart); best-of-3 slices/s and
+   batches, counted as above (K1 and K4 apart, and K4 by path: every
+   launch must take the fused wgmma path); best-of-3 slices/s and
    one profiled request of each mode; each mode's sample through the
    kernels against its plain versions (``INT8_SAMPLE_TOL``) and against
    the bf16 sample;
@@ -38,7 +40,7 @@ ends the run with a non-zero exit code:
    ``BF16_VOLUME_TOL`` (``volume_drift.py`` measures what sets it); then
    the CLI's default, W8A8, with the int8 leg's calibration written as
    the sidecars beside the checkpoint, and with ``--int8_dynamic``, each
-   counted and checked as in 4;
+   counted and checked as in 4 (K4 on its fused path only);
 6. training: ``create_train_state`` + ``make_train_step`` at the same
    recipe, batch 2, bf16, ``attn="flash"``, seeded non-trivial weights
    (the critic too, off its zero-init head).  Four iterations on global
@@ -59,10 +61,14 @@ ends the run with a non-zero exit code:
    scaled_dot_product_attention and its backward) with CUDA events,
    device time only (``time_ms``); K2 also with the L2 cold
    (``time_cold_ms``), and its share of the bound is read on that
-   time.  K4 is held bit for bit (its codes, s32 accumulator and output,
-   in both modes and in bf16 and fp32 compute) at every shape the int8
-   runs gave it and at INT8_EXTRA_SHAPES, and timed beside
-   ``torch._int_mm`` on the codes' explicit im2col and K1 in bf16.  The
+   time.  K4 is held bit for bit (the fused kernel's s32 accumulator
+   from x and its absmax, the general path's codes and s32 accumulator,
+   and the output, in both modes and in bf16 and fp32 compute) at every
+   shape the int8 runs gave it and at INT8_EXTRA_SHAPES (one of them on
+   the general path), and timed beside the general path (its quantize
+   and GEMM apart), ``torch._int_mm`` on the codes' explicit im2col and
+   K1 in bf16; the profiled int8 requests split K4 into its absmax and
+   conv kernels.  The
    bound is the larger of bytes / HBM rate and operations / peak rate of
    the card.  K1's, K3's and K3's backward rows name their
    design ("tc": bf16 / fp16 on the tensor cores, "fma": fp32 on the
@@ -187,9 +193,10 @@ INT8_PEAKS = {"H100 SXM": 1979e12, "H100 PCIe": 1513e12, "H100 NVL": 1671e12}
 # conv) with dynamic scales, and with static scales that calibrate_sampler
 # records over CALIB_BATCHES seeded synthetic batches.  K4 is also held
 # and timed at the nf=128 recipe's widest routed site (the decoder's
-# first conv at 64^2: 4nf + 4nf = 1024 -> 512), beside the paths' shapes.
+# first conv at 64^2: 4nf + 4nf = 1024 -> 512), beside the paths' shapes,
+# and at a shape of its general path (Cin % 16 != 0), which no path gives.
 CALIB_BATCHES = 2
-INT8_EXTRA_SHAPES = (((BATCH, 64, 64, 1024), 512),)
+INT8_EXTRA_SHAPES = (((BATCH, 64, 64, 1024), 512), ((2, 32, 32, 72), 64))
 # The int8 sample through the kernels vs the same with every plain version
 # forced (same weights, injected noise), max abs in [-1, 1] units.  K4
 # gives its plain version's bits (K4 alone through its kernel: 0.0), but
@@ -209,6 +216,17 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def sass_count(library, mark: str) -> int:
+    """Lines of the library's SASS (cuobjdump -sass, beside nvcc) that hold
+    ``mark``."""
+    from mudiff_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return sum(mark in line for line in sass.splitlines())
 
 
 def peaks_for(name: str):
@@ -672,19 +690,33 @@ def im2col_int8(q):
     return torch.cat(taps, dim=-1).reshape(b * h * w, 9 * c)
 
 
+K4_PARTS = (("s8wgmma", "conv"), ("absmax_kernel", "absmax"), ("quantize_kernel", "quantize"),
+            ("s8conv", "gemm"), ("memset", "memset"))
+
+
+def k4_part(kernel_name: str):
+    """K4's name for a device kernel (``K4_PARTS``), else None."""
+    name = kernel_name.lower()
+    return next((label for mark, label in K4_PARTS if mark in name), None)
+
+
 def int8_rows(shapes, peaks, int8_peak, card):
     """K4 at each shape an int8 path gave it and at INT8_EXTRA_SHAPES.
     ``shapes`` maps the wrapper's key (x shape, Cout, x dtype, compute
     dtype, mode) to its launch counts.  At every shape, in both modes and
-    in bf16 and fp32 compute: the codes (and in dynamic mode the
-    per-example absmax), the s32 accumulator and the output of K4 equal
-    its plain version's bit for bit.  Timed in the path's dtypes and mode:
-    K4 (the wrapper: quantize and conv), the plain version, the library's
-    ``torch._int_mm`` on the codes' explicit im2col (built outside the
-    timing; the quantize and the epilogue not included) and K1 in bf16 at
-    the same shape.  The bound is the larger of the int8 operations over
-    the int8 peak and the bytes (x in its dtype, the int8 weight and its
-    scales, the output) over the HBM rate."""
+    in bf16 and fp32 compute, bit for bit against its plain version: the
+    kernel the wrapper takes (``k4_path``) through the wrapper's output;
+    the fused kernel's s32 accumulator computed from x (its int32 output)
+    and, in dynamic mode, its per-example absmax; and the general path's
+    codes, absmax and s32 accumulator.  Timed in the path's dtypes and
+    mode: K4 (the wrapper), the general path whole and its quantize and
+    GEMM calls apart (the profiled int8 requests split K4's own kernels,
+    absmax and conv), the plain
+    version, the library's ``torch._int_mm`` on the codes' explicit im2col
+    (built outside the timing; the quantize and the epilogue not included)
+    and K1 in bf16 at the same shape.  The bound is the larger of the int8
+    operations over the int8 peak and the bytes (x in its dtype, the int8
+    weight and its scales, the output) over the HBM rate."""
     import torch
 
     from mudiff_torch.ops import conv3x3, int8_conv3x3, plain_kernels
@@ -704,18 +736,27 @@ def int8_rows(shapes, peaks, int8_peak, card):
         qws = {m: k4.quantize_conv_weight(wt, absmax_c if m == "static" else None)
                for m in ("dynamic", "static")}
         what = f"int8_conv3x3 {xshape}->{cout} {str(xdtype)[6:]}"
+        path = k4.k4_path(x, qws[mode])
         for m, qw in qws.items():
-            q, absmax = k4.int8_quantize_cuda(x, qw.inv_a)
             if m == "dynamic":
                 q_plain, _ = k4.quantize_activation(x)
-                if not torch.equal(absmax, x.float().abs().amax(dim=(1, 2, 3))):
-                    raise AssertionError(f"{what}: per-example absmax differs")
+                absmax_plain = x.float().abs().amax(dim=(1, 2, 3))
             else:
                 q_plain = k4.quantize_activation_static(x, qw.inv_a)
+            acc_plain = k4.conv_acc_plain(q_plain, qw.wq)
+            if path == "wgmma":  # the fused kernel, from x
+                acc, absmax = k4.int8_fused_cuda(x, qw, bias, torch.int32)
+                if m == "dynamic" and not torch.equal(absmax, absmax_plain):
+                    raise AssertionError(f"{what}: fused per-example absmax differs")
+                if not torch.equal(acc.double(), acc_plain):
+                    raise AssertionError(f"{what} {m}: fused s32 accumulator differs")
+            q, absmax = k4.int8_quantize_cuda(x, qw.inv_a)  # the general path
+            if m == "dynamic" and not torch.equal(absmax, absmax_plain):
+                raise AssertionError(f"{what}: per-example absmax differs")
             if not torch.equal(q, q_plain):
                 raise AssertionError(f"{what} {m}: codes differ from the plain version's")
             acc = k4.int8_conv_cuda(q, qw, absmax, bias, torch.int32)
-            if not torch.equal(acc.double(), k4.conv_acc_plain(q_plain, qw.wq)):
+            if not torch.equal(acc.double(), acc_plain):
                 raise AssertionError(f"{what} {m}: s32 accumulator differs")
             for dt in (torch.bfloat16, torch.float32):
                 got = int8_conv3x3(x, None, bias, compute_dtype=dt, qweight=qw)
@@ -727,9 +768,16 @@ def int8_rows(shapes, peaks, int8_peak, card):
         # timed in the path's dtypes and mode
         qw = qws[mode]
 
+        def k4_call():
+            return int8_conv3x3(x, None, bias, compute_dtype=cdtype, qweight=qw)
+
         def plain_call():
             with plain_kernels():
-                return int8_conv3x3(x, None, bias, compute_dtype=cdtype, qweight=qw)
+                return k4_call()
+
+        def general_call():
+            q, absmax = k4.int8_quantize_cuda(x, qw.inv_a)
+            return k4.int8_conv_cuda(q, qw, absmax, bias, cdtype)
 
         q, absmax = k4.int8_quantize_cuda(x, qw.inv_a)
         cols, wmat = im2col_int8(q), qw.wq_nk.t()
@@ -744,10 +792,12 @@ def int8_rows(shapes, peaks, int8_peak, card):
                   + torch.empty((), dtype=cdtype).element_size() * b * h * w * cout)
         rows.append(with_bound_share({
             "kernel": "int8_conv3x3", "x": list(xshape), "cout": cout,
-            "x_dtype": str(xdtype)[6:], "dtype": str(cdtype)[6:], "mode": mode, "design": "tc",
-            **counts, "bit_exact": True, "err_bf16": 0.0, "err_fp32": 0.0,
-            "ms": time_ms(lambda: int8_conv3x3(x, None, bias, compute_dtype=cdtype,
-                                               qweight=qw)),
+            "x_dtype": str(xdtype)[6:], "dtype": str(cdtype)[6:], "mode": mode, "path": path,
+            "design": "tc", **counts, "bit_exact": True, "err_bf16": 0.0, "err_fp32": 0.0,
+            "ms": time_ms(k4_call),
+            "general_ms": time_ms(general_call),
+            "general_quantize_ms": time_ms(lambda: k4.int8_quantize_cuda(x, qw.inv_a)),
+            "general_gemm_ms": time_ms(lambda: k4.int8_conv_cuda(q, qw, absmax, bias, cdtype)),
             "plain_ms": time_ms(plain_call),
             "library_ms": time_ms(lambda: torch._int_mm(cols, wmat)),
             "library": "torch._int_mm on the explicit int8 im2col (codes to s32 only)",
@@ -842,10 +892,13 @@ def int8_phase(cfg, sampler, requests, x_init, noise, card) -> dict:
                 torch.cuda.synchronize()
                 seconds[mode].append(time.perf_counter() - t)
     launches = ops.launch_counts()
+    paths = dict(ops.int8_conv3x3.path_launches)
     print(json.dumps({"int8_launch_counts": launches, "expected": expected,
-                      "request_s": seconds}), flush=True)
+                      "k4_path_launches": paths, "request_s": seconds}), flush=True)
     if launches != expected or not launches["int8_conv3x3"]:
         raise AssertionError(f"int8 launches {launches} != structure's {expected}")
+    if paths != {"wgmma": launches["int8_conv3x3"], "general": 0}:
+        raise AssertionError(f"the int8 sampler run took K4's general path: {paths}")
     for out in outs:
         if out.shape != (BATCH, IMAGE, IMAGE, 1) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"bad int8 sample: {tuple(out.shape)}")
@@ -872,8 +925,9 @@ def int8_phase(cfg, sampler, requests, x_init, noise, card) -> dict:
         "sample_kernel_vs_plain_max_abs": diffs, "tolerance": INT8_SAMPLE_TOL,
         "sample_vs_bf16_sample_max_abs": vs_bf16, "sample_runs": runs,
         "profile_one_request": profiles}), flush=True)
-    return {"launches": launches, "log": log, "calibs": calibs, "best_request_s": best,
-            "profiles": profiles, "sample_diffs": diffs, "sample_vs_bf16": vs_bf16}
+    return {"launches": launches, "k4_path_launches": paths, "log": log, "calibs": calibs,
+            "best_request_s": best, "profiles": profiles, "sample_diffs": diffs,
+            "sample_vs_bf16": vs_bf16}
 
 
 SOURCES = {
@@ -971,6 +1025,10 @@ def kernel_summary(name, rows, launches, path=None):
     designs = sorted({r["design"] for r in mine if r[path] and "design" in r})
     if designs:
         entry["design"] = "+".join(designs)
+    if all("general_ms" in r for r in mine):  # K4: its general path and K1 beside it
+        for key in ("general_ms", "general_quantize_ms", "general_gemm_ms", "k1_bf16_ms"):
+            entry[key] = total(key)
+        entry["paths"] = sorted({r["path"] for r in mine if r[path]})
     return entry
 
 
@@ -1137,6 +1195,7 @@ def volume_phases(cfg, sampler, calibs, card) -> dict:
     leg's volume: the CLI without --bf16 (W8A8, the static scales of
     ``calibs`` as sidecars beside the checkpoint), and with
     --int8_dynamic."""
+    from mudiff_torch import ops
     from mudiff_torch.infer.calibrate import calib_sidecar_paths, save_calib
 
     n_slices = 2 * VOLUME_HALF + 1
@@ -1154,7 +1213,7 @@ def volume_phases(cfg, sampler, calibs, card) -> dict:
         "int8 static": ((), False, log8, True),
         "int8 dynamic": (("--int8_dynamic",), False, log8, True),
     }
-    vols, seconds, counts = {}, {}, {}
+    vols, seconds, counts, paths = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as workdir:
         write_volume_inputs(workdir, sampler, SEED + 40)
         for calib, path in zip(calibs, calib_sidecar_paths(os.path.join(workdir, "ckpt"))):
@@ -1165,6 +1224,10 @@ def volume_phases(cfg, sampler, calibs, card) -> dict:
             want = dict.fromkeys(expected, 0) if plain else expected8 if int8 else expected
             if counts[tag] != want:
                 raise AssertionError(f"volume {tag}: launches {counts[tag]} != {want}")
+            if int8:  # K4's launches by path, read after the run as the counts are
+                paths[tag] = dict(ops.int8_conv3x3.path_launches)
+                if paths[tag] != {"wgmma": counts[tag]["int8_conv3x3"], "general": 0}:
+                    raise AssertionError(f"volume {tag} took K4's general path: {paths[tag]}")
 
     diffs = {"fp32 kernels vs plain": volume_distance(vols["fp32"], vols["fp32 plain"]),
              "bf16 kernels vs plain": volume_distance(vols["bf16"], vols["bf16 plain"]),
@@ -1182,6 +1245,7 @@ def volume_phases(cfg, sampler, calibs, card) -> dict:
         "slices_per_s": n_slices / seconds["bf16"],
         "slices_per_s_warm": n_slices / seconds["bf16 warm"],
         "int8_launch_counts": {tag: counts[tag] for tag in ("int8 static", "int8 dynamic")},
+        "int8_k4_path_launches": paths,
         "int8_slices_per_s": {tag: n_slices / seconds[tag]
                               for tag in ("int8 static", "int8 dynamic")},
         "max_abs_diff": diffs, "tolerance": {"fp32": SAMPLE_TOL["fp32"], "bf16": BF16_VOLUME_TOL},
@@ -1408,7 +1472,7 @@ PROFILE_GROUPS = (
     ("K3 flash_attn", ("flash_attn_kernel",)),
     ("K3 bwd dkv", ("flash_attn_bwd_dkv_kernel",)),
     ("K3 bwd dq", ("flash_attn_bwd_dq_kernel",)),
-    ("K4 int8_conv3x3", ("s8conv", "absmax_kernel", "quantize_kernel")),
+    ("K4 int8_conv3x3", ("s8wgmma", "s8conv", "absmax_kernel", "quantize_kernel")),
     ("optimizer (Adam, EMA)", ("adam", "multi_tensor", "foreach")),
     ("copies and casts", ("copy", "memcpy", "memset")),
     ("reductions (GroupNorm statistics, means)", ("reduce_kernel",)),
@@ -1453,7 +1517,11 @@ def profile_call(fn) -> dict:
         by_group[group] = by_group.get(group, 0.0) + ms
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    k4_parts = {}
+    for kname, ms in by_name.items():
+        if any(m in kname.lower() for m in dict(PROFILE_GROUPS)["K4 int8_conv3x3"]):
+            k4_parts[k4_part(kname)] = k4_parts.get(k4_part(kname), 0.0) + ms
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "k4_parts_ms": k4_parts,
             "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
             "device_ms_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
             "distinct_device_kernels": len(by_name),
@@ -1489,8 +1557,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = _build.build()
     build = {"build_s": time.perf_counter() - t0,
-             "per_library_s": {k: v["seconds"] for k, v in built.items()}}
+             "per_library_s": {k: v["seconds"] for k, v in built.items()},
+             "k4_gmma_instructions": sass_count(_build.library_path("int8_conv"), "GMMA")}
     print(json.dumps(build), flush=True)
+    if not build["k4_gmma_instructions"]:
+        raise AssertionError("K4's library holds no GMMA (wgmma) instruction")
 
     cfg = brats_recipe(num_channels_dae=NF, image_size=IMAGE)
     sampler = build_sampler(cfg, device=DEVICE, generator=torch.Generator().manual_seed(SEED))

@@ -34,9 +34,19 @@ op by op, outside ``jit``, the JAX functions round twice instead, and
 differ from these by an ulp now and then.  ``fma32`` computes the fused
 form in PyTorch.
 
-The CUDA kernels are ``csrc/int8_conv_kernel.cu``: the quantize (an
-absmax reduction in dynamic mode, then an elementwise pass that writes
-the int8 codes) and the s8 tensor-core implicit GEMM with the epilogue.
+The CUDA kernels are ``csrc/int8_conv_kernel.cu``, on two paths that
+``k4_path`` chooses by shape and alignment before any launch:
+
+* **wgmma** (every shape of the flagship configurations): one ctypes call,
+  ``int8_fused_cuda``.  The conv quantizes its own halo patches of x in
+  shared memory and multiplies on Hopper's ``wgmma`` with the weight
+  tiles arriving by TMA, so no int8 code reaches device memory; static
+  scales are one launch, dynamic ones two (per-example partial maxima of
+  |x| first).  It needs Cin % 16 == 0 and 16-byte aligned x and weight.
+* **general** (any other shape): the quantize (an absmax reduction in
+  dynamic mode, then an elementwise pass that writes the int8 codes) and
+  the s8 ``mma.sync`` implicit GEMM with the epilogue,
+  ``int8_quantize_cuda`` then ``int8_conv_cuda``.
 The plain version (``int8_conv3x3_plain``) quantizes in PyTorch and
 convolves the codes with ``F.conv2d`` in float64, which is exact below
 2^53 (|acc| <= 9 * Cin * 127^2); float32 is not exact above 2^24.
@@ -309,8 +319,71 @@ def _kernel_fns():
         conv = lib.mudiff_int8_conv3x3
         conv.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         conv.restype = ctypes.c_int
-        _FNS = (quant, conv)
+        fused = lib.mudiff_int8_conv3x3_fused
+        fused.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+                          + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fused.restype = ctypes.c_int
+        _FNS = (quant, conv, fused)
     return _FNS
+
+
+# Partial maxima of |x| an example that the fused dynamic path reduces
+# (csrc/int8_conv_kernel.cu, s8wgmma::ABSMAX_PARTS).
+ABSMAX_PARTS = 128
+
+
+def k4_path(x: torch.Tensor, qw: Int8Weight) -> str:
+    """Which of K4's kernels takes a call on the contiguous NHWC ``x``:
+    ``"wgmma"`` (the fused quantize + wgmma conv) when Cin % 16 == 0 and x
+    and the (Cout, 9 * Cin) weight start on 16-byte boundaries (the tensor
+    maps' strides and addresses), else ``"general"`` (the quantize pass and
+    the mma.sync GEMM).  Decided before any launch, from shapes and
+    addresses alone, on any device."""
+    cin = x.shape[-1]
+    if (cin % 16 == 0 and x.shape[0] <= 65535 and x.data_ptr() % 16 == 0
+            and qw.wq_nk.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "general"
+
+
+def _check_bias(bias: Optional[torch.Tensor], cout: int) -> None:
+    if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (cout,)
+                             or not bias.is_contiguous()):
+        raise ValueError("int8 conv: bias must be a contiguous float32 (Cout,)")
+
+
+def int8_fused_cuda(x: torch.Tensor, qw: Int8Weight, bias: Optional[torch.Tensor],
+                    out_dtype: torch.dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K4's fused kernel on a contiguous CUDA NHWC ``x``, one ctypes call:
+    ``(out, absmax float32 (B,))`` in dynamic mode (``qw.inv_a`` None),
+    ``(out, None)`` in static mode; ``out`` the rescaled output in
+    ``out_dtype``, or the raw s32 accumulator for ``torch.int32``."""
+    if x.dtype not in DTYPE_CODES or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"int8 conv: need a contiguous float NHWC x, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    b, h, w, cin = x.shape
+    cout = qw.wq_nk.shape[0]
+    if tuple(qw.wq_nk.shape) != (cout, 9 * cin) or k4_path(x, qw) != "wgmma":
+        raise ValueError(f"int8 conv: x {tuple(x.shape)} and weight "
+                         f"{tuple(qw.wq_nk.shape)} do not fit the wgmma path")
+    _check_bias(bias, cout)
+    out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
+    absmax = parts = None
+    if qw.inv_a is None:
+        absmax = torch.empty((b,), dtype=torch.float32, device=x.device)
+        parts = torch.empty((b, ABSMAX_PARTS), dtype=torch.float32, device=x.device)
+    elif (qw.inv_a.dtype != torch.float32 or tuple(qw.inv_a.shape) != (cin,)
+          or not qw.inv_a.is_contiguous()):
+        raise ValueError("int8 conv: inv_a must be a contiguous float32 (Cin,)")
+    rc = _kernel_fns()[2](
+        x.data_ptr(), DTYPE_CODES[x.dtype], qw.wq_nk.data_ptr(),
+        None if qw.inv_a is None else qw.inv_a.data_ptr(),
+        None if absmax is None else absmax.data_ptr(),
+        None if parts is None else parts.data_ptr(), qw.w_scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), OUT_CODES[out_dtype],
+        b, h, w, cin, cout, torch.cuda.current_stream(x.device).cuda_stream)
+    check_cuda_result("int8 conv (wgmma)", rc)
+    return out, absmax
 
 
 def int8_quantize_cuda(x: torch.Tensor, inv_a: Optional[torch.Tensor] = None
@@ -345,9 +418,7 @@ def int8_conv_cuda(q: torch.Tensor, qw: Int8Weight, absmax: Optional[torch.Tenso
             or tuple(qw.wq_nk.shape) != (cout, 9 * cin)):
         raise ValueError(f"int8 conv: codes {q.dtype} {tuple(q.shape)} and weight "
                          f"{tuple(qw.wq_nk.shape)} do not fit")
-    if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (cout,)
-                             or not bias.is_contiguous()):
-        raise ValueError("int8 conv: bias must be a contiguous float32 (Cout,)")
+    _check_bias(bias, cout)
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=q.device)
     rc = _kernel_fns()[1](
         q.data_ptr(), qw.wq_nk.data_ptr(), None if absmax is None else absmax.data_ptr(),
@@ -377,13 +448,21 @@ def int8_conv3x3(x: torch.Tensor, w: Optional[torch.Tensor], bias: Optional[torc
         return int8_conv3x3_plain(x, qw, bias, compute_dtype)
     if compute_dtype not in DTYPE_CODES:
         raise TypeError(f"int8_conv3x3: compute dtype {compute_dtype}")
-    q, absmax = int8_quantize_cuda(x.contiguous(), qw.inv_a)
-    out = int8_conv_cuda(q, qw, absmax, bias, compute_dtype)
+    x = x.contiguous()
+    path = k4_path(x, qw)
+    if path == "wgmma":
+        out, _ = int8_fused_cuda(x, qw, bias, compute_dtype)
+    else:
+        q, absmax = int8_quantize_cuda(x, qw.inv_a)
+        out = int8_conv_cuda(q, qw, absmax, bias, compute_dtype)
     int8_conv3x3.launches += 1
+    int8_conv3x3.path_launches[path] += 1
     return out
 
 
 int8_conv3x3.launches = 0
+# the launches of each path (k4_path): the main path's shapes take "wgmma"
+int8_conv3x3.path_launches = {"wgmma": 0, "general": 0}
 
 
 class Int8WeightCache:

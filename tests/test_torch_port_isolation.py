@@ -53,7 +53,8 @@ def test_port_imports_no_jax_or_mudiff_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", ["mudiff_torch", "chip_smoke.py", "volume_drift.py"])
+@pytest.mark.parametrize("path", ["mudiff_torch", "chip_smoke.py", "volume_drift.py",
+                                  "k4_timeline.py"])
 def test_sources_name_no_jax_import(path):
     files = [REPO / path] if path.endswith(".py") else sorted((REPO / path).rglob("*.py"))
     for f in files:
@@ -109,6 +110,30 @@ def test_chip_smoke_flash_attn_entry_sums_the_volume_phase():
     assert entry["shapes"] == 1
     with pytest.raises(AssertionError, match="add up"):
         chip_smoke.kernel_summary("flash_attn", rows, 8)
+
+
+def test_chip_smoke_int8_entry_sums_the_int8_run():
+    """K4's entry counts the int8 leg's sampler launches and sums, over
+    them, its general path whole and apart and K1's bf16 time; a shape
+    only the checks ran (the general-path one) adds nothing."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    def row(launches, path, ms, general):
+        return {"kernel": "int8_conv3x3", "launches": 0, "int8_launches": launches,
+                "path": path, "err_bf16": 0.0, "ms": ms, "plain_ms": 3.0,
+                "library_ms": 0.2, "flop_ms": 0.05, "byte_ms": 0.01,
+                "general_ms": general, "general_quantize_ms": 0.1,
+                "general_gemm_ms": general - 0.1, "k1_bf16_ms": 1.0}
+
+    rows = [row(10, "wgmma", 0.4, 0.7), row(0, "general", 0.3, 0.3)]
+    entry = chip_smoke.kernel_summary("int8_conv3x3", rows, 10)
+    assert entry["source"] == "mudiff_torch/csrc/int8_conv_kernel.cu"
+    assert "int8" in entry["per"] and entry["paths"] == ["wgmma"]
+    assert abs(entry["ms"] - 4.0) < 1e-9 and abs(entry["general_ms"] - 7.0) < 1e-9
+    assert abs(entry["general_gemm_ms"] - 6.0) < 1e-9
+    assert abs(entry["general_quantize_ms"] - 1.0) < 1e-9
+    assert abs(entry["k1_bf16_ms"] - 10.0) < 1e-9 and entry["bound_by"] == "operations"
 
 
 def test_chip_smoke_rows_count_each_path_on_its_own():
