@@ -52,7 +52,24 @@ ends the run with a non-zero exit code:
    within ``TRAIN_TOL``; best-of-N times of an iteration with and
    without R1 and of the D and G steps, training slices/s, peak memory,
    and one iteration under torch.profiler;
-7. at every distinct shape any path gave each kernel (and, for K3 and
+7. the training program and the slice test through their CLIs, at the
+   same width on seeded synthetic data: LOOP_PATIENTS patients of
+   LOOP_VOLUME voxels in four modalities written as .nii.gz, then
+   ``python -m mudiff_torch.data.preprocess`` (+-LOOP_HALF slices, a 4 /
+   2 / 2 split: 20 train, 10 val, 10 test slices); ``mudiff_torch.cli.
+   train`` for LOOP_EPOCHS epochs at batch 2 (``--attn flash``, R1 every
+   LOOP_LAZY global steps), its ``content.pt`` restored into a fresh state
+   and held against the file tensor for tensor (Adam state, schedule
+   counts, step), then ``--resume`` for one more epoch (R1 where the
+   restored global step puts it; the history holds every epoch); then
+   ``mudiff_torch.cli.test`` int8 (dynamic scales, K4 on its fused path)
+   and ``--bf16``: 10 PNG pairs that read back through ``utils/png.py``
+   as the codes written, finite metrics.  Every run counted as in 3,
+   against the iterations' ``kernel_launches_per_iteration`` and the
+   sampling calls' launches; its times, the data-wait share, the
+   checkpoint's bytes and save / restore times and the peak memory
+   printed beside the card;
+8. at every distinct shape any path gave each kernel (and, for K3 and
    its backward, the nf=128 width and a ragged length; for K2, the
    shapes of ``FIR_EXTRA_SHAPES`` on its one-channel path), hold the
    kernel against its plain PyTorch version (bf16 and fp32), and time the
@@ -75,14 +92,14 @@ ends the run with a non-zero exit code:
    CUDA cores) and every row and entry its share of the bound (bound ms
    / ms, K2's bound ms / ms_cold).  K3's backward runs twice on the same
    inputs and must give the same bits;
-8. the whole sample with the plain versions forced, same weights and
+9. the whole sample with the plain versions forced, same weights and
    injected noise: bf16 and fp32 differences against stated tolerances;
-9. best-of-N slices/s of one request, and one request under
+10. best-of-N slices/s of one request, and one request under
    torch.profiler (device time by kernel, the device's idle share), then
    one batch-8 sample of the volume phase's sampler (--attn flash) too;
-10. every kernel must have launched in 3, 4 or 6; the kernels summed
-   over the volume phase's, the training phase's and the int8 leg's
-   launches, then the ``kernels`` JSON line (K1 and K2 over the main
+11. every kernel must have launched in 3, 4 or 6, and each in 7; the
+   kernels summed over the volume phase's, the training phase's, the int8 leg's and
+   the train-loop phase's launches, then the ``kernels`` JSON line (K1 and K2 over the main
    path's launches, K3 over the volume phase's, K3's backward over the
    training phase's, K4 over the int8 leg's sampler run), then
    ``{"ok": true, "device": ...}``.
@@ -133,6 +150,19 @@ FLUSH_BYTES = 256 * 2**20
 TRAIN_BATCH = 2
 TRAIN_ITERS = 4
 FLASH_BWD_EXTRA_SHAPES = ((2, 4096, 512), (2, 1000, 256), (2, 1024, 64), (2, 1024, 128))
+# The train-loop + slice-test phase: LOOP_PATIENTS synthetic patients of
+# LOOP_VOLUME voxels in four modalities, preprocessed to the centre
+# +-LOOP_HALF axial slices with a 4 / 2 / 2 patient split (20 train, 10
+# val, 10 test slices); the train CLI at batch TRAIN_BATCH for LOOP_EPOCHS
+# epochs (10 iterations each, R1 every LOOP_LAZY global steps), then one
+# more on --resume; the test CLI at batch LOOP_TEST_BATCH, int8, then bf16.
+LOOP_PATIENTS = 8
+LOOP_VOLUME = (256, 256, 32)
+LOOP_HALF = 2
+LOOP_SPLIT = (0.5, 0.25)  # train and val ratios of the patients
+LOOP_EPOCHS = 2
+LOOP_LAZY = 4
+LOOP_TEST_BATCH = 4
 
 # Tolerances, kernel vs plain version on the same inputs.  Both
 # accumulate in fp32; in bf16 they round the same fp32 sum once, so a
@@ -953,7 +983,7 @@ SOURCES = {
 # phase, K3's backward, which only training runs, and K4, which only the
 # int8 leg runs (its sampler run).
 PATHS = ("launches", "volume_launches", "train_launches", "int8_launches",
-         "int8_volume_launches")
+         "int8_volume_launches", "loop_launches")
 COUNTED_IN = {"flash_attn": "volume_launches", "flash_attn_bwd_dkv": "train_launches",
               "flash_attn_bwd_dq": "train_launches", "int8_conv3x3": "int8_launches"}
 
@@ -978,6 +1008,11 @@ def run_of(path: str) -> str:
         n = 2 * VOLUME_HALF + 1
         return (f"the int8 leg's volume runs: the CLI without --bf16, with the static "
                 f"sidecars and with --int8_dynamic, {n} slices in batches of {VOLUME_BATCH}")
+    if path == "loop_launches":
+        return (f"the train-loop phase's runs: the train CLI ({LOOP_EPOCHS} epochs of 10 "
+                f"iterations at batch {TRAIN_BATCH}, then one more on --resume, each epoch "
+                f"with its preview and validation samples, attn flash) and the test CLI "
+                f"(10 slices in batches of {LOOP_TEST_BATCH}, int8 then --bf16)")
     if path == "train_launches":
         return (f"the training phase's run: {TRAIN_ITERS} iterations (D step, R1 on the "
                 f"first, G step) at batch {TRAIN_BATCH}, bf16, attn flash")
@@ -1463,6 +1498,292 @@ def training_phase(cfg, card) -> dict:
             "times": times, "peak_bytes": peak, "profile": profile}
 
 
+def recipe_argv(cfg) -> list:
+    """The CLI flags that give ``cfg``'s model, diffusion and optimiser."""
+    return [
+        "--image_size", str(cfg.image_size), "--num_channels", str(cfg.num_channels),
+        "--num_channels_dae", str(cfg.num_channels_dae), "--ch_mult", *map(str, cfg.ch_mult),
+        "--num_res_blocks", str(cfg.num_res_blocks),
+        "--attn_resolutions", ",".join(map(str, cfg.attn_resolutions)),
+        "--num_timesteps", str(cfg.num_timesteps), "--nz", str(cfg.nz),
+        "--z_emb_dim", str(cfg.z_emb_dim), "--t_emb_dim", str(cfg.t_emb_dim),
+        "--n_mlp", str(cfg.n_mlp), "--ngf", str(cfg.ngf), "--lr_g", repr(cfg.lr_g),
+        "--lr_d", repr(cfg.lr_d), "--r1_gamma", repr(cfg.r1_gamma),
+    ]
+
+
+def write_patients(root: str, seed: int) -> None:
+    """LOOP_PATIENTS BraTS-named patient folders of four .nii.gz
+    modalities: an ellipsoid of smooth tissue on a zero background, in
+    integer intensities as a scanner writes them.  Each file is written
+    as .nii and gzipped at level 1 (``nifti.save`` gzips at level 9, 41 s
+    for the 32 files on the card's host)."""
+    import gzip
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mudiff_torch.utils import nifti
+
+    rng = np.random.RandomState(seed)
+    x, y, z = np.meshgrid(*[np.linspace(-1, 1, n, dtype=np.float32) for n in LOOP_VOLUME],
+                          indexing="ij")
+    r2 = (x / 0.8) ** 2 + (y / 0.9) ** 2 + (z / 1.2) ** 2
+    for p in range(LOOP_PATIENTS):
+        pdir = os.path.join(root, f"BraTS-{p:05d}")
+        os.makedirs(pdir)
+        for m, kw in enumerate(("t1n", "t1c", "t2w", "t2f")):
+            coarse = torch.from_numpy(rng.randn(1, 1, 10, 10, 4).astype(np.float32))
+            smooth = F.interpolate(coarse, size=LOOP_VOLUME, mode="trilinear",
+                                   align_corners=False)[0, 0].numpy()
+            tissue = (300.0 + 80.0 * m) * (1.5 + 0.5 * np.tanh(smooth) - 0.3 * r2)
+            vol = np.round(np.where(r2 < 1.0, tissue, 0.0)).astype(np.float32)
+            path = os.path.join(pdir, f"BraTS-{p:05d}-{kw}.nii")
+            nifti.save(vol, np.array(AFFINE), path)
+            with open(path, "rb") as f, gzip.open(path + ".gz", "wb", compresslevel=1) as g:
+                g.write(f.read())
+            os.remove(path)
+
+
+def loop_structure(cfg) -> dict:
+    """Kernel launches of one training iteration with and without R1, and
+    of one sampling call (--attn flash), from the module structure."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from mudiff_torch.models import DiscriminatorLarge, NCSNppGenerator
+    from mudiff_torch.train import TrainState
+
+    with torch.device("meta"):
+        g1, g2 = (NCSNppGenerator(cfg, adaptive=a, attn="flash", device="meta")
+                  for a in (False, True))
+        d = DiscriminatorLarge(ngf=cfg.ngf, t_emb_dim=cfg.t_emb_dim, device="meta")
+    modules = SimpleNamespace(g1=g1, g2=g2, d=d)  # what the method reads
+    return {"r1": TrainState.kernel_launches_per_iteration(modules, True),
+            "no_r1": TrainState.kernel_launches_per_iteration(modules, False),
+            "sample": structure_launches(cfg, "flash"),
+            "sample_int8": structure_launches(cfg.replace(use_int8=True), "flash")}
+
+
+def combine(parts) -> dict:
+    """Sum of ``n x counts`` over ``parts`` [(n, counts), ...]."""
+    out = {}
+    for n, counts in parts:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + n * v
+    return out
+
+
+def payload_equal(a, b, path="content") -> None:
+    """Raise unless two content dicts hold the same tensors and values."""
+    import torch
+
+    if torch.is_tensor(a):
+        if not (torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b)):
+            raise AssertionError(f"restored {path} differs from content.pt")
+    elif isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"restored {path} has other keys than content.pt")
+        for k in a:
+            payload_equal(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"restored {path} has another length")
+        for i, (x, y) in enumerate(zip(a, b)):
+            payload_equal(x, y, f"{path}/{i}")
+    elif a != b:
+        raise AssertionError(f"restored {path}: {a!r} != {b!r}")
+
+
+def counted(log, fn):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after; returns (its result, the counts, its wall seconds)."""
+    import torch
+
+    from mudiff_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with ops.record_calls(log):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    return out, ops.launch_counts(), seconds
+
+
+def loop_phase(cfg, card) -> dict:
+    """Phase 7: preprocess, train, restore, resume and the slice test,
+    through the port's CLIs at full width."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from mudiff_torch import ops
+    from mudiff_torch.cli import test as test_cli
+    from mudiff_torch.cli import train as train_cli
+    from mudiff_torch.cli.args import parse_config
+    from mudiff_torch.data import _native, preprocess
+    from mudiff_torch.train import checkpoint as ckpt
+    from mudiff_torch.train import create_train_state
+    from mudiff_torch.utils import png
+
+    struct = loop_structure(cfg)
+    log, counts, seconds = [], {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        raw, npy, out = (os.path.join(work, d) for d in ("raw", "npy", "results"))
+        t = time.perf_counter()
+        write_patients(raw, SEED + 60)
+        seconds["write_nifti"] = time.perf_counter() - t
+        t = time.perf_counter()
+        preprocess.main(["--input_dir", raw, "--output_dir", npy, "--slice_half_range",
+                         str(LOOP_HALF), "--train_ratio", str(LOOP_SPLIT[0]),
+                         "--val_ratio", str(LOOP_SPLIT[1])])
+        seconds["preprocess"] = time.perf_counter() - t
+        sizes = {s: np.load(os.path.join(npy, s, "T1CE.npy"), mmap_mode="r").shape
+                 for s in ("train", "val", "test")}
+        if sizes != {s: (n, IMAGE, IMAGE) for s, n in (("train", 20), ("val", 10),
+                                                       ("test", 10))}:
+            raise AssertionError(f"preprocessed splits {sizes}")
+
+        argv = recipe_argv(cfg) + [
+            "--input_path", npy, "--output_path", out, "--exp", "smoke",
+            "--batch_size", str(TRAIN_BATCH), "--lazy_reg", str(LOOP_LAZY), "--log_every", "1",
+            "--save_ckpt_every", "1", "--attn", "flash", "--seed", str(SEED)]
+        tcfg = parse_config(argv, mode="train")[0]
+        for field in ("image_size", "num_channels_dae", "ch_mult", "num_res_blocks",
+                      "attn_resolutions", "num_timesteps", "nz", "z_emb_dim", "t_emb_dim",
+                      "n_mlp", "ngf", "lr_g", "lr_d", "r1_gamma", "num_channels"):
+            if getattr(tcfg, field) != getattr(cfg, field):
+                raise AssertionError(f"train CLI's {field}: {getattr(tcfg, field)}")
+        steps = 20 // TRAIN_BATCH
+        val_batches = math.ceil(10 / TRAIN_BATCH)
+
+        # -- train: LOOP_EPOCHS epochs, counted
+        torch.cuda.reset_peak_memory_stats()
+        first, counts["train"], seconds["train"] = counted(
+            log, lambda: train_cli.main(argv + ["--num_epoch", str(LOOP_EPOCHS)]))
+        peak = torch.cuda.max_memory_allocated()
+        exp = first["exp_dir"]
+        n_steps = LOOP_EPOCHS * steps
+        want_r1 = [s for s in range(n_steps) if s % LOOP_LAZY == 0]
+        previews = sum(1 for e in range(LOOP_EPOCHS) if e % 10 == 0 or e == LOOP_EPOCHS - 1)
+        want = combine([(len(want_r1), struct["r1"]), (n_steps - len(want_r1), struct["no_r1"]),
+                        (previews + LOOP_EPOCHS * val_batches, struct["sample"])])
+        if counts["train"] != want or first["r1_steps"] != want_r1:
+            raise AssertionError(f"train launches {counts['train']} != structure's {want}; "
+                                 f"R1 on {first['r1_steps']}")
+        content_bytes = os.path.getsize(os.path.join(exp, ckpt.CONTENT_FILE))
+
+        # -- the restore, held against content.pt tensor for tensor
+        state = create_train_state(tcfg.replace(num_epoch=LOOP_EPOCHS + 1), seed=SEED + 61,
+                                   steps_per_epoch=steps, device=DEVICE, attn="flash")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, epoch, global_step = ckpt.restore_content(exp, state)
+        torch.cuda.synchronize()
+        seconds["restore"] = time.perf_counter() - t
+        saved = ckpt.load_content(exp)
+        payload_equal(ckpt.content_payload(state, epoch, global_step), saved)
+        if (epoch, global_step, state.step) != (LOOP_EPOCHS - 1, n_steps, n_steps):
+            raise AssertionError(f"content.pt at epoch {epoch}, step {global_step}")
+        if state.counts != dict.fromkeys(("g1", "g2", "d"), n_steps):
+            raise AssertionError(f"restored schedule counts {state.counts}")
+        del state, saved
+
+        # -- resume: one more epoch, counted
+        torch.cuda.reset_peak_memory_stats()
+        resumed, counts["resume"], seconds["resume"] = counted(
+            log, lambda: train_cli.main(argv + ["--num_epoch", str(LOOP_EPOCHS + 1),
+                                                "--resume"]))
+        want_r1 = [s for s in range(n_steps, n_steps + steps) if s % LOOP_LAZY == 0]
+        want = combine([(len(want_r1), struct["r1"]), (steps - len(want_r1), struct["no_r1"]),
+                        (1 + val_batches, struct["sample"])])  # the last epoch's preview
+        peak_resume = torch.cuda.max_memory_allocated()
+        if counts["resume"] != want or resumed["r1_steps"] != want_r1:
+            raise AssertionError(f"resume launches {counts['resume']} != structure's {want}; "
+                                 f"R1 on {resumed['r1_steps']}")
+        with open(resumed["history"]) as f:
+            history = _json.load(f)
+        if [h["epoch"] for h in history] != list(range(LOOP_EPOCHS + 1)):
+            raise AssertionError(f"history epochs {[h['epoch'] for h in history]}")
+        if not all(math.isfinite(v) for h in history for v in h["losses"].values()) or \
+                not all(h["val_psnr"] is not None for h in history):
+            raise AssertionError("a loss or a validation PSNR is not finite")
+        files = set(os.listdir(exp))
+        need = {"content.pt", "gen_diffusive_1.pt", "gen_diffusive_2.pt",
+                f"gen_diffusive_1_{LOOP_EPOCHS}.pt", "sample_epoch_0.png",
+                f"sample_epoch_{LOOP_EPOCHS}.png", "val_l1_loss.npy", "val_psnr_values.npy",
+                "training_history.json", "train_config.json"}
+        if not need <= files:
+            raise AssertionError(f"missing artifacts {sorted(need - files)}")
+        if np.load(os.path.join(exp, "val_psnr_values.npy")).shape != (LOOP_EPOCHS + 2,
+                                                                        val_batches):
+            raise AssertionError("val_psnr_values.npy has the wrong shape")
+
+        # -- the slice test: int8 (the CLI's default, dynamic scales), then bf16
+        tests = {}
+        targv = recipe_argv(cfg) + ["--input_path", npy, "--ckpt_dir", exp, "--attn", "flash",
+                                    "--test_batch_size", str(LOOP_TEST_BATCH)]
+        n_batches = math.ceil(10 / LOOP_TEST_BATCH)
+        for tag, extra, per in (("int8", [], struct["sample_int8"]),
+                                ("bf16", ["--bf16"], struct["sample"])):
+            res, counts[f"test {tag}"], seconds[f"test {tag}"] = counted(
+                log, lambda: test_cli.main(targv + extra))
+            paths = dict(ops.int8_conv3x3.path_launches)
+            want = combine([(n_batches, per)])
+            if counts[f"test {tag}"] != want:
+                raise AssertionError(f"test {tag} launches {counts[f'test {tag}']} != {want}")
+            if paths != {"wgmma": want["int8_conv3x3"], "general": 0}:
+                raise AssertionError(f"test {tag}: K4 by path {paths}")
+            for kind in ("pred", "gt"):
+                names = sorted(os.listdir(res[f"{kind}_dir"]))
+                if names != [f"{kind}_{i:05d}.png" for i in range(10)]:
+                    raise AssertionError(f"test {tag}: {kind} files {names}")
+                for i, name in enumerate(names):
+                    if not np.array_equal(png.read_gray8(os.path.join(res[f"{kind}_dir"], name)),
+                                          res[f"{kind}_u8"][i]):
+                        raise AssertionError(f"test {tag}: {name} does not read back")
+            if res["n_slices"] != 10 or not all(math.isfinite(res[k])
+                                                for k in ("psnr", "ssim", "mae")):
+                raise AssertionError(f"test {tag}: {res}")
+            tests[tag] = {k: v for k, v in res.items() if k not in ("pred_u8", "gt_u8")}
+            tests[tag]["k4_path_launches"] = paths
+
+    timings = first["timings"]
+    result = {
+        "card": card, "phase": "train loop + slice test", "nf": cfg.num_channels_dae,
+        "image": IMAGE, "batch": TRAIN_BATCH, "attn": "flash", "lazy_reg": LOOP_LAZY,
+        "native_gather": _native.native_available(), "native_build_error": _native.build_error,
+        "seconds": seconds,
+        "iteration_s_median": float(np.median(timings["iteration_s"])),
+        "slices_per_s": TRAIN_BATCH / float(np.median(timings["iteration_s"])),
+        "data_wait_share": timings["data_wait_s"] / timings["window_s"],
+        "epoch_s": timings["epoch_s"] + resumed["timings"]["epoch_s"],
+        "validation_s": timings["val_s"] + resumed["timings"]["val_s"],
+        "preview_s": timings["preview_s"] + resumed["timings"]["preview_s"],
+        "content_bytes": content_bytes,
+        "content_save_s": timings["content_save_s"] + resumed["timings"]["content_save_s"],
+        "generators_save_s": timings["generators_save_s"],
+        "restore_s": {"loop": resumed["timings"]["restore_s"], "check": seconds["restore"]},
+        "max_memory_allocated_bytes": {"train": peak, "resume": peak_resume},
+        "r1_steps": first["r1_steps"] + resumed["r1_steps"],
+        "history": history, "launch_counts": counts,
+        "slice_test": {tag: {"slices_per_s": 10 / seconds[f"test {tag}"],
+                             "sample_slices_per_s": 10 / t["seconds"]["sample_s"],
+                             "seconds": t["seconds"], "psnr": t["psnr"], "ssim": t["ssim"],
+                             "mae": t["mae"], "k4_path_launches": t["k4_path_launches"]}
+                       for tag, t in tests.items()},
+    }
+    print(_json.dumps(result), flush=True)
+    totals = combine([(1, c) for c in counts.values()])
+    return {"launches": totals, "log": log, **result}
+
+
 # Device kernels of a request, grouped by the first group one of whose
 # marks occurs in the kernel's lower-cased name.
 PROFILE_GROUPS = (
@@ -1597,7 +1918,7 @@ def main(argv=None) -> int:
 
     print(json.dumps({"graph_recording_calls": grad_runs_through_kernels(DEVICE)}), flush=True)
 
-    # injected noise of the whole-sample comparisons (phase 8, the int8 leg)
+    # injected noise of the whole-sample comparisons (phase 9, the int8 leg)
     zgen = torch.Generator(DEVICE).manual_seed(SEED + 30)
     x_init = torch.randn((BATCH, IMAGE, IMAGE, 1), generator=zgen, device=DEVICE)
     noise = [(torch.randn((BATCH, cfg.nz), generator=zgen, device=DEVICE),
@@ -1613,9 +1934,13 @@ def main(argv=None) -> int:
     # -- the training iteration, K3's backward on the path ---------------------
     train = training_phase(cfg, card)
 
+    # -- the training program and the slice test through their CLIs ------------
+    loop = loop_phase(cfg, card)
+
     counts = shape_counts({"launches": log, "volume_launches": volume["log"],
                            "train_launches": train["log"], "int8_launches": int8["log"],
-                           "int8_volume_launches": volume["int8_log"]})
+                           "int8_volume_launches": volume["int8_log"],
+                           "loop_launches": loop["log"]})
     fir_shapes = {(kname, *key, 0): c for kname in ("fir_down2", "fir_up2")
                   for key, c in counts[kname].items()}
     fir_shapes.update({(kname, shape, torch.bfloat16, offset): dict.fromkeys(PATHS, 0)
@@ -1698,12 +2023,19 @@ def main(argv=None) -> int:
                for path, run in (("int8_launches", int8["launches"]),
                                  ("int8_volume_launches", volume["int8_launches"]))}
     print(json.dumps({"card": card, "int8_leg_kernels": on_int8}), flush=True)
+    on_loop = [kernel_summary(k, rows, loop["launches"][k], "loop_launches")
+               for k in ops.KERNEL_WRAPPERS if loop["launches"][k]]
+    idle = [k for k in ops.KERNEL_WRAPPERS if not loop["launches"][k]]
+    if idle:
+        raise AssertionError(f"the train-loop phase never launched {idle}")
+    print(json.dumps({"card": card, "loop_phase_kernels": on_loop}), flush=True)
     kernels = [kernel_summary(k, rows, counted[k]) for k in ops.KERNEL_WRAPPERS]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build": build, "rows": rows, "kernels": kernels,
                        "volume_phase_kernels": on_volume, "training_phase_kernels": on_train,
-                       "int8_leg_kernels": on_int8,
+                       "int8_leg_kernels": on_int8, "loop_phase_kernels": on_loop,
+                       "loop": {k: v for k, v in loop.items() if k != "log"},
                        "int8": {k: v for k, v in int8.items() if k != "log"}
                        | {"calibs": [c.to_json_dict() for c in int8["calibs"]]},
                        "volume": {k: v for k, v in volume.items()

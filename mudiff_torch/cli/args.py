@@ -1,20 +1,24 @@
-"""The argparse surface of the port's serving CLI.
+"""The argparse surface of the port's CLIs.
 
-The port's own copy of the ``test_volume`` mode of
-``mudiff_tpu/cli/args.py`` (reference engine/test_volume.py:302-359):
-every flag name and default is kept, backed by the port's
-``MuDiffConfig``.  ``--use_int8`` is on by default, as in the JAX
-package: the generators serve W8A8 (kernel K4) with the static
-calibration sidecars beside the checkpoints when they exist, else with
-dynamic scales; ``--int8_static`` requires the sidecars,
-``--int8_dynamic`` ignores them, and ``--bf16`` serves exactly in bf16.
-One difference, deliberate: ``--attn`` resolves as the flag, else
-``bf16``; ``MUDIFF_ATTN`` is not read, as the port has no environment
-knobs (ROADMAP.md).
+The port's own copy of ``mudiff_tpu/cli/args.py`` in its three modes,
+``train``, ``test`` and ``test_volume`` (reference engine/train.py:
+1318-1446, engine/test.py:401-485, engine/test_volume.py:302-359): every
+flag name and default of each mode is kept, backed by the port's
+``MuDiffConfig``.  ``--use_int8`` is on by default in the serving modes
+(``test``, ``test_volume``), as in the JAX package: the generators serve
+W8A8 (kernel K4) with the static calibration sidecars beside the
+checkpoints when they exist, else with dynamic scales; ``--int8_static``
+requires the sidecars, ``--int8_dynamic`` ignores them, and ``--bf16``
+serves exactly in bf16.  Training parses ``--use_int8`` and ignores it.
 
-Flags with no meaning on one card (the legacy DDP flags, ``--dp``,
-``--fsdp``, ``--gpu_chose``, the training flags) are accepted and
-ignored.
+One difference, deliberate: ``--attn`` (bf16 | einsum | flash) is
+accepted in every mode, ``train`` included, in place of the
+``MUDIFF_ATTN`` variable, which the port does not read (it has no
+environment knobs, ROADMAP.md).  It resolves as the flag, else ``einsum``
+for ``train`` (what JAX training uses) and ``bf16`` for the serving
+modes.  Flags with no meaning on one card (the legacy DDP flags,
+``--gpu_chose``) are accepted and ignored; ``--dp`` / ``--fsdp`` above 1
+are refused by the training loop.
 """
 
 from __future__ import annotations
@@ -24,10 +28,14 @@ from typing import Optional, Sequence
 
 from mudiff_torch.config import MuDiffConfig, _as_int_list
 
+MODES = ("train", "test", "test_volume")
 
-def build_parser() -> argparse.ArgumentParser:
-    """The ``test_volume`` mode's parser (the only mode ported so far)."""
-    p = argparse.ArgumentParser("mudiff_torch test_volume parameters")
+
+def build_parser(mode: str = "test_volume") -> argparse.ArgumentParser:
+    """The parser of ``mode`` (``train``, ``test`` or ``test_volume``)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
+    p = argparse.ArgumentParser(f"mudiff_torch {mode} parameters")
     d = MuDiffConfig()  # argparse defaults = dataclass defaults
 
     p.add_argument("--seed", type=int, default=d.seed)
@@ -110,7 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--master_address", type=str, default="127.0.0.1")
     p.add_argument("--port_num", type=str, default="6021")
 
-    # parallelism of the JAX package — accepted, ignored (one card)
+    # parallelism of the JAX package: one card, so dp <= 1 and fsdp 1
+    # (the training loop refuses more)
     p.add_argument("--dp", type=int, default=-1,
                    help="data-parallel axis size (-1 = all devices)")
     p.add_argument("--fsdp", type=int, default=1,
@@ -129,8 +138,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_bf16", action="store_true", default=True)
     p.add_argument("--no_bf16", dest="use_bf16", action="store_false")
     # W8A8 int8 serving (kernel K4): default on for the serving CLIs, as
-    # in the JAX package; --bf16 serves exactly in bf16.
-    p.add_argument("--use_int8", action="store_true", default=True)
+    # in the JAX package; --bf16 serves exactly in bf16.  Training parses
+    # it and ignores it.
+    p.add_argument("--use_int8", action="store_true",
+                   default=(mode in ("test", "test_volume")))
     p.add_argument("--bf16", dest="use_int8", action="store_false",
                    help="exact bf16 serving (disable the int8 path)")
     # static activation scales from the int8_calib_g{1,2}.json sidecars
@@ -144,28 +155,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_mem_after_update", action="store_true", default=False)
     p.add_argument("--debug_verbose", action="store_true", default=False)
 
-    p.add_argument("--ckpt_dir", type=str, default=None)
-    p.add_argument("--test_batch_size", type=int, default=8)
-    # reference test flags with no meaning here; accepted and ignored
-    p.add_argument("--gpu_chose", type=int, default=0)
-    p.add_argument("--compute_fid", action="store_true", default=False)
-    # attention lowering for serving: bf16 scores (default), the exact
-    # fp32 einsum, or flash (kernel K3).  The flag, else bf16.
+    # attention lowering: bf16 scores, the exact fp32 einsum, or flash
+    # (kernel K3; in training with its backward).  The flag, else einsum
+    # for train and bf16 for the serving modes (parse_config).
     p.add_argument("--attn", choices=("bf16", "einsum", "flash"), default=None)
-    p.add_argument("--input_t1", type=str, default=None)
-    p.add_argument("--input_t2", type=str, default=None)
-    p.add_argument("--input_t1ce", type=str, default=None)
-    p.add_argument("--input_flair", type=str, default=None)
-    p.add_argument("--output_dir", type=str, default="./volume_out")
-    p.add_argument("--slice_half_range", type=int, default=80)
+    if mode in ("test", "test_volume"):
+        p.add_argument("--ckpt_dir", type=str, default=None)
+        p.add_argument("--test_batch_size", type=int, default=8)
+        # reference test flags with no meaning here; accepted and ignored
+        p.add_argument("--gpu_chose", type=int, default=0)
+        p.add_argument("--compute_fid", action="store_true", default=False)
+    if mode == "test_volume":
+        p.add_argument("--input_t1", type=str, default=None)
+        p.add_argument("--input_t2", type=str, default=None)
+        p.add_argument("--input_t1ce", type=str, default=None)
+        p.add_argument("--input_flair", type=str, default=None)
+        p.add_argument("--output_dir", type=str, default="./volume_out")
+        p.add_argument("--slice_half_range", type=int, default=80)
     return p
 
 
-def parse_config(argv: Optional[Sequence[str]] = None):
+def parse_config(argv: Optional[Sequence[str]] = None, mode: str = "test_volume"):
     """Parse argv into (MuDiffConfig, argparse.Namespace)."""
-    args = build_parser().parse_args(argv)
+    args = build_parser(mode).parse_args(argv)
     args.attn_resolutions = tuple(_as_int_list(args.attn_resolutions))
     args.fir_kernel = tuple(_as_int_list(args.fir_kernel))
-    args.attn = args.attn or "bf16"
+    args.attn = args.attn or ("einsum" if mode == "train" else "bf16")
     cfg = MuDiffConfig.from_dict(vars(args))
     return cfg, args

@@ -1,0 +1,39 @@
+"""``python -m mudiff_torch.cli.test --...``: the slice-level test on the
+card (the counterpart of ``mudiff_tpu/cli/test.py``; reference
+engine/test.py:400-492).
+
+    python -m mudiff_torch.cli.test --input_path NPY --output_path RESULTS \\
+        --exp EXP --target_modality T1CE [--ckpt_dir CKPT] [--test_batch_size 8] \\
+        [--bf16] [--attn flash] [architecture flags]
+
+Samples the test split with the generators of ``CKPT`` (default the
+experiment's directory; W8A8 int8 unless ``--bf16``), writes the
+``pred/`` and ``gt/`` PNG pairs and prints their PSNR / SSIM / MAE as JSON.
+"""
+
+import json
+import time
+
+from mudiff_torch.cli.args import parse_config
+from mudiff_torch.infer.slice_test import sample_and_test
+from mudiff_torch.metrics import evaluate_pair_dirs
+
+
+def main(argv=None, device=None) -> dict:
+    """Run the CLI; ``device`` (default the card) is for the tests only.
+    Returns the printed summary, and beside it the codes written
+    (``pred_u8``, ``gt_u8``) and the host ``seconds`` of each part."""
+    cfg, args = parse_config(argv, mode="test")
+    out = sample_and_test(cfg, ckpt_dir=args.ckpt_dir, batch_size=args.test_batch_size,
+                          seed=cfg.seed, device=device, attn=args.attn)
+    t0 = time.perf_counter()
+    metrics = evaluate_pair_dirs(out["pred_dir"], out["gt_dir"])
+    seconds = {**out["seconds"], "metrics_s": time.perf_counter() - t0}
+    summary = {**{k: out[k] for k in ("pred_dir", "gt_dir")}, "n_slices": out["n_slices"],
+               **metrics}
+    print(json.dumps(summary, indent=2))
+    return {**summary, "pred_u8": out["pred_u8"], "gt_u8": out["gt_u8"], "seconds": seconds}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,26 @@
+"""``python -m mudiff_torch.cli.train --...``: training on the card (the
+counterpart of ``mudiff_tpu/cli/train.py``; reference engine/train.py:
+1313-1472).
+
+    python -m mudiff_torch.cli.train --input_path NPY --output_path RESULTS \\
+        --exp EXP --target_modality T1CE --attn flash [architecture flags]
+    python -m mudiff_torch.cli.train ... --resume --num_epoch N
+
+It trains on one device; there is no distributed initialisation
+(``--dp`` / ``--fsdp`` above 1 are refused).  What it writes is listed in
+``mudiff_torch/train/loop.py``.
+"""
+
+from mudiff_torch.cli.args import parse_config
+from mudiff_torch.train.loop import train
+
+
+def main(argv=None, device=None) -> dict:
+    """Run the CLI; ``device`` (default the card) is for the tests only.
+    Returns ``train``'s artifacts."""
+    cfg, args = parse_config(argv, mode="train")
+    return train(cfg, device=device, attn=args.attn)
+
+
+if __name__ == "__main__":
+    main()

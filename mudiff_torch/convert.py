@@ -21,6 +21,20 @@ flax leaf                              port key                 layout change
 ``.../bias``, ``<nin>/b``              ``.../bias``             none
 =====================================  =======================  ==============
 
+``content_from_flax(payload)`` carries a whole JAX content checkpoint
+(``mudiff_tpu/train/checkpoint.py`` ``save_content``) into the port's
+``content.pt`` dict (``train/checkpoint.py``): the parameters by the
+rules above, ``att_conv``, the EMA shadows, and optax's Adam state.
+``optax.adam`` is ``chain(scale_by_adam, scale_by_learning_rate)``, so
+each optimizer state is ``(ScaleByAdamState(count, mu, nu),
+ScaleByScheduleState(count))``: ``mu`` / ``nu`` follow the parameters'
+leaf rules and become torch Adam's ``exp_avg`` / ``exp_avg_sq``, keyed
+by parameter name; the Adam count becomes its ``step``, and the
+schedule's count the ``counts`` entry the cosine schedule reads.  It
+takes what a bare orbax ``restore`` gives as numpy, which turns
+NamedTuples into dicts keyed by field and tuples into lists (or dicts
+keyed by index), as well as the NamedTuples themselves.
+
 ``export_generators(params_g1, params_g2, out_dir)`` writes the two
 generators' state_dicts as ``gen_diffusive_{1,2}.pt``, the files that
 ``infer.generators.load_generators`` reads.  Its inputs are what an orbax
@@ -75,7 +89,7 @@ def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarr
         name = "bias"
     else:
         raise ValueError(f"unknown flax leaf {'/'.join(path)}")
-    return ".".join([*scope, name]), np.ascontiguousarray(arr, dtype=np.float32)
+    return ".".join([*scope, name]), np.array(arr, dtype=np.float32, order="C")
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -97,8 +111,8 @@ def att_conv_from_flax(att_conv: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     w = np.asarray(att_conv["w"], np.float32)
     if w.ndim != 4 or w.shape[:2] != (1, 1) or w.shape[-1] != 1:
         raise ValueError(f"att_conv w must be (1, 1, C, 1), got {w.shape}")
-    return {"weight": torch.from_numpy(np.ascontiguousarray(w[0, 0].T)),
-            "bias": torch.from_numpy(np.asarray(att_conv["b"], np.float32).reshape(1))}
+    return {"weight": torch.from_numpy(np.array(w[0, 0].T, order="C")),
+            "bias": torch.from_numpy(np.array(att_conv["b"], np.float32).reshape(1))}
 
 
 def train_state_from_flax(state_np: Any) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -114,6 +128,57 @@ def train_state_from_flax(state_np: Any) -> Dict[str, Dict[str, torch.Tensor]]:
             "g2": params_from_flax(field("params_g2")),
             "d": params_from_flax(field("params_d")),
             "att_conv": att_conv_from_flax(field("att_conv"))}
+
+
+def _fields(node: Any) -> Dict[str, Any]:
+    """A container as {field or index: value}: dicts, NamedTuples, and
+    tuples or lists (keys "0", "1", ...)."""
+    if isinstance(node, Mapping):
+        return {str(k): v for k, v in node.items()}
+    if hasattr(node, "_asdict"):
+        return dict(node._asdict())
+    if isinstance(node, (list, tuple)):
+        return {str(i): v for i, v in enumerate(node)}
+    raise TypeError(f"not a container: {type(node).__name__}")
+
+
+def adam_state_from_flax(opt_state: Any) -> Tuple[Dict[str, Any], int]:
+    """An ``optax.adam`` state -> (the port's name-keyed torch Adam
+    state_dict, the learning-rate schedule's count)."""
+    parts = list(_fields(opt_state).values())
+    adam = [_fields(p) for p in parts if isinstance(p, (Mapping, tuple, list))
+            and {"count", "mu", "nu"} <= set(_fields(p))]
+    sched = [_fields(p) for p in parts if isinstance(p, (Mapping, tuple, list))
+             and set(_fields(p)) == {"count"}]
+    if len(adam) != 1 or len(sched) != 1:
+        raise ValueError("expected (ScaleByAdamState, ScaleByScheduleState) in an "
+                         f"optax.adam state, got fields {[sorted(_fields(p)) for p in parts]}")
+    adam, count = adam[0], int(np.asarray(sched[0]["count"]))
+    mu, nu = params_from_flax(adam["mu"]), params_from_flax(adam["nu"])
+    if set(mu) != set(nu):
+        raise ValueError("Adam's mu and nu name different parameters")
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    state = {name: {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+             for name in mu}
+    return {"state": state, "param_groups": [{"params": list(mu)}]}, count
+
+
+def content_from_flax(payload: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX content checkpoint (as an orbax ``restore`` gives it, turned
+    to numpy) -> the port's ``content.pt`` dict."""
+    out = {"epoch": int(np.asarray(payload["epoch"])),
+           "global_step": int(np.asarray(payload["global_step"])),
+           "step": int(np.asarray(payload["step"])),
+           "att_conv": att_conv_from_flax(payload["att_conv"]), "counts": {}}
+    for name in ("g1", "g2", "d"):
+        out[name] = params_from_flax(payload[f"params_{name}"])
+        out[f"opt_{name}"], out["counts"][name] = adam_state_from_flax(payload[f"opt_{name}"])
+        if set(out[f"opt_{name}"]["state"]) != set(out[name]):
+            raise ValueError(f"opt_{name}: the moments name other parameters than params_{name}")
+    for name in ("ema_g1", "ema_g2"):
+        ema = payload.get(name)
+        out[name] = params_from_flax(ema) if ema is not None else None
+    return out
 
 
 def export_generators(params_g1: Mapping[str, Any], params_g2: Mapping[str, Any],

@@ -1,4 +1,6 @@
-"""The adversarial training iteration (D step with lazy R1, G step, Adam)."""
+"""The training program: the adversarial iteration (D step with lazy R1,
+G step, Adam), checkpoints with resume, and the epoch loop
+(``python -m mudiff_torch.cli.train``)."""
 
 from mudiff_torch.train.state import TrainState, create_train_state
 from mudiff_torch.train.steps import (

@@ -1,1 +1,1 @@
-"""Utilities of the port (NIfTI I/O)."""
+"""Utilities of the port: NIfTI and PNG I/O, training reports, profiling."""
