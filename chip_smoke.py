@@ -69,7 +69,25 @@ ends the run with a non-zero exit code:
    sampling calls' launches; its times, the data-wait share, the
    checkpoint's bytes and save / restore times and the peak memory
    printed beside the card;
-8. at every distinct shape any path gave each kernel (and, for K3 and
+8. the shipped experiment through the port's own CLIs, at its width:
+   ``experiments/brats.yaml`` copied with only ``data_path`` (phase 7's
+   split), ``output_root`` and ``num_epoch`` (30 -> 1) changed, so
+   ``synthesize_T1CE`` keeps nf=128, batch 2, remat ``hires``, lazy_reg
+   16, bf16; under PyTorch's default cuDNN settings, as a user runs
+   them: ``check_pipeline`` (exit 0), ``run`` (one epoch, then the test
+   at batch 8: iteration times, peak memory, ``content.pt`` bytes and
+   save time, slices/s, metrics), ``metric_calc`` (the run's metrics;
+   ``--lpips_rand`` on the card), ``calibrate_int8 --batches 2``, the
+   test CLI ``--int8_static`` on those sidecars (K4, fused path only),
+   and ``predict_volume_wrapper`` on a phase 7 patient (checked as in
+   4).  Then the remat table at the same width and batch: none /
+   ``hires`` / ``hires4`` / ``blocks``, and no remat and ``blocks`` with
+   flash attention; per leg one D (R1) + G iteration's gradients against
+   the no-remat leg's (``TRAIN_TOL["bf16"]``; the no-remat leg against
+   its own repeat gives the run-to-run floor) and launches that must
+   exceed it for every recomputed kernel, then wall and device-only
+   (profiled) medians and the peak memory;
+9. at every distinct shape any path gave each kernel (and, for K3 and
    its backward, the nf=128 width and a ragged length; for K2, the
    shapes of ``FIR_EXTRA_SHAPES`` on its one-channel path), hold the
    kernel against its plain PyTorch version (bf16 and fp32), and time the
@@ -92,14 +110,16 @@ ends the run with a non-zero exit code:
    CUDA cores) and every row and entry its share of the bound (bound ms
    / ms, K2's bound ms / ms_cold).  K3's backward runs twice on the same
    inputs and must give the same bits;
-9. the whole sample with the plain versions forced, same weights and
+10. the whole sample with the plain versions forced, same weights and
    injected noise: bf16 and fp32 differences against stated tolerances;
-10. best-of-N slices/s of one request, and one request under
+11. best-of-N slices/s of one request, and one request under
    torch.profiler (device time by kernel, the device's idle share), then
    one batch-8 sample of the volume phase's sampler (--attn flash) too;
-11. every kernel must have launched in 3, 4 or 6, and each in 7; the
-   kernels summed over the volume phase's, the training phase's, the int8 leg's and
-   the train-loop phase's launches, then the ``kernels`` JSON line (K1 and K2 over the main
+12. every kernel must have launched in 3, 4 or 6, each in 7, K1, K2 and
+   K4 in 8's CLI runs and K1-K3 in its remat table; the kernels summed
+   over the volume phase's, the training phase's, the int8 leg's, the
+   train-loop phase's and phase 8's two runs' launches, then the
+   ``kernels`` JSON line (K1 and K2 over the main
    path's launches, K3 over the volume phase's, K3's backward over the
    training phase's, K4 over the int8 leg's sampler run), then
    ``{"ok": true, "device": ...}``.
@@ -163,6 +183,28 @@ LOOP_SPLIT = (0.5, 0.25)  # train and val ratios of the patients
 LOOP_EPOCHS = 2
 LOOP_LAZY = 4
 LOOP_TEST_BATCH = 4
+
+# Phase 8: the shipped experiment through the port's own CLIs, at the width
+# it ships with: RUN_YAML's RUN_EXPERIMENT (nf=128, ch_mult (1, 2, 4),
+# batch 2, remat "hires", lazy_reg 16, bf16) on phase 7's split, its
+# data_path, output_root and num_epoch (30 -> RUN_EPOCHS) changed in a
+# copy; calibrate_int8 over RUN_CALIB_BATCHES val batches of 4; the volume
+# wrapper on one of phase 7's patients, its centre +-WRAPPER_HALF slices.
+RUN_YAML = "experiments/brats.yaml"
+RUN_EXPERIMENT = "synthesize_T1CE"
+RUN_NF = 128  # the experiment's width, held before the run
+RUN_EPOCHS = 1
+RUN_CALIB_BATCHES = 2
+WRAPPER_HALF = 4
+# The remat table at the same width and batch: (leg, policy, attention).
+# Each leg's gradients (one D (R1) + G iteration at the same weights and
+# draws) are held against the no-remat leg of its attention at
+# TRAIN_TOL["bf16"]; then REMAT_ITERS wall-timed and REMAT_ITERS profiled
+# iterations after a warm-up.
+REMAT_LEGS = (("none", None, "einsum"), ("hires", "hires", "einsum"),
+              ("hires4", "hires4", "einsum"), ("blocks", "blocks", "einsum"),
+              ("none flash", None, "flash"), ("blocks flash", "blocks", "flash"))
+REMAT_ITERS = 3
 
 # Tolerances, kernel vs plain version on the same inputs.  Both
 # accumulate in fp32; in bf16 they round the same fp32 sum once, so a
@@ -983,7 +1025,7 @@ SOURCES = {
 # phase, K3's backward, which only training runs, and K4, which only the
 # int8 leg runs (its sampler run).
 PATHS = ("launches", "volume_launches", "train_launches", "int8_launches",
-         "int8_volume_launches", "loop_launches")
+         "int8_volume_launches", "loop_launches", "run_launches", "remat_launches")
 COUNTED_IN = {"flash_attn": "volume_launches", "flash_attn_bwd_dkv": "train_launches",
               "flash_attn_bwd_dq": "train_launches", "int8_conv3x3": "int8_launches"}
 
@@ -1001,6 +1043,14 @@ def shape_counts(logs: dict) -> dict:
 
 def run_of(path: str) -> str:
     """The run whose launches the count ``path`` holds."""
+    if path == "run_launches":
+        return (f"phase 8's CLI runs on {RUN_YAML}'s {RUN_EXPERIMENT} (nf=128): run "
+                f"({RUN_EPOCHS} epoch at batch 2, remat hires, then the test at batch 8), "
+                f"calibrate_int8 ({RUN_CALIB_BATCHES} batches of 4), the int8 test on the "
+                f"sidecars, and the volume wrapper ({2 * WRAPPER_HALF + 1} slices)")
+    if path == "remat_launches":
+        return ("the remat table's counted iterations: one D (R1) + G iteration at nf=128, "
+                "batch 2, per leg: " + ", ".join(leg for leg, _, _ in REMAT_LEGS))
     if path == "int8_launches":
         return (f"the int8 leg's sampler run: {REQUESTS} requests with dynamic scales, then "
                 f"{REQUESTS} with static scales, each a 4-step W8A8 sample of batch {BATCH}")
@@ -1159,20 +1209,23 @@ AFFINE = ((-1.0, 0.0, 0.0, 120.0), (0.0, -1.0, 0.0, 120.0), (0.0, 0.0, 1.0, -77.
           (0.0, 0.0, 0.0, 1.0))
 
 
-def check_volume(path: str):
-    """The predicted NIfTI: input shape and affine, zeros outside the
-    predicted slices, finite and not constant inside.  Returns its data."""
+def check_volume(path: str, shape=None, half=None):
+    """The predicted NIfTI: input shape (default VOLUME_SHAPE) and affine,
+    zeros outside the predicted slices (the centre +-``half``, default
+    VOLUME_HALF), finite and not constant inside.  Returns its data."""
     import numpy as np
 
     from mudiff_torch.utils import nifti
 
+    shape = VOLUME_SHAPE if shape is None else tuple(shape)
+    half = VOLUME_HALF if half is None else half
     img = nifti.load(path)
     vol = img.get_fdata()
-    mid = VOLUME_SHAPE[2] // 2
-    band = vol[:, :, mid - VOLUME_HALF:mid + VOLUME_HALF + 1]
-    if img.shape != VOLUME_SHAPE or not np.allclose(img.affine, AFFINE):
+    mid = shape[2] // 2
+    band = vol[:, :, mid - half:mid + half + 1]
+    if img.shape != shape or not np.allclose(img.affine, AFFINE):
         raise AssertionError(f"predicted volume {img.shape}, affine {img.affine.tolist()}")
-    if vol[:, :, :mid - VOLUME_HALF].any() or vol[:, :, mid + VOLUME_HALF + 1:].any():
+    if vol[:, :, :mid - half].any() or vol[:, :, mid + half + 1:].any():
         raise AssertionError("predicted volume is not zero outside the predicted slices")
     if not np.isfinite(band).all() or float(band.std()) < 1e-3:
         raise AssertionError(f"predicted slices: finite {np.isfinite(band).all()}, "
@@ -1615,9 +1668,10 @@ def counted(log, fn):
     return out, ops.launch_counts(), seconds
 
 
-def loop_phase(cfg, card) -> dict:
+def loop_phase(cfg, card, work: str) -> dict:
     """Phase 7: preprocess, train, restore, resume and the slice test,
-    through the port's CLIs at full width."""
+    through the port's CLIs at full width.  The raw patients and the
+    split stay in ``work`` (phase 8 reads them)."""
     import json as _json
 
     import numpy as np
@@ -1634,125 +1688,124 @@ def loop_phase(cfg, card) -> dict:
 
     struct = loop_structure(cfg)
     log, counts, seconds = [], {}, {}
-    with tempfile.TemporaryDirectory() as work:
-        raw, npy, out = (os.path.join(work, d) for d in ("raw", "npy", "results"))
-        t = time.perf_counter()
-        write_patients(raw, SEED + 60)
-        seconds["write_nifti"] = time.perf_counter() - t
-        t = time.perf_counter()
-        preprocess.main(["--input_dir", raw, "--output_dir", npy, "--slice_half_range",
-                         str(LOOP_HALF), "--train_ratio", str(LOOP_SPLIT[0]),
-                         "--val_ratio", str(LOOP_SPLIT[1])])
-        seconds["preprocess"] = time.perf_counter() - t
-        sizes = {s: np.load(os.path.join(npy, s, "T1CE.npy"), mmap_mode="r").shape
-                 for s in ("train", "val", "test")}
-        if sizes != {s: (n, IMAGE, IMAGE) for s, n in (("train", 20), ("val", 10),
-                                                       ("test", 10))}:
-            raise AssertionError(f"preprocessed splits {sizes}")
+    raw, npy, out = (os.path.join(work, d) for d in ("raw", "npy", "results"))
+    t = time.perf_counter()
+    write_patients(raw, SEED + 60)
+    seconds["write_nifti"] = time.perf_counter() - t
+    t = time.perf_counter()
+    preprocess.main(["--input_dir", raw, "--output_dir", npy, "--slice_half_range",
+                     str(LOOP_HALF), "--train_ratio", str(LOOP_SPLIT[0]),
+                     "--val_ratio", str(LOOP_SPLIT[1])])
+    seconds["preprocess"] = time.perf_counter() - t
+    sizes = {s: np.load(os.path.join(npy, s, "T1CE.npy"), mmap_mode="r").shape
+             for s in ("train", "val", "test")}
+    if sizes != {s: (n, IMAGE, IMAGE) for s, n in (("train", 20), ("val", 10),
+                                                   ("test", 10))}:
+        raise AssertionError(f"preprocessed splits {sizes}")
 
-        argv = recipe_argv(cfg) + [
-            "--input_path", npy, "--output_path", out, "--exp", "smoke",
-            "--batch_size", str(TRAIN_BATCH), "--lazy_reg", str(LOOP_LAZY), "--log_every", "1",
-            "--save_ckpt_every", "1", "--attn", "flash", "--seed", str(SEED)]
-        tcfg = parse_config(argv, mode="train")[0]
-        for field in ("image_size", "num_channels_dae", "ch_mult", "num_res_blocks",
-                      "attn_resolutions", "num_timesteps", "nz", "z_emb_dim", "t_emb_dim",
-                      "n_mlp", "ngf", "lr_g", "lr_d", "r1_gamma", "num_channels"):
-            if getattr(tcfg, field) != getattr(cfg, field):
-                raise AssertionError(f"train CLI's {field}: {getattr(tcfg, field)}")
-        steps = 20 // TRAIN_BATCH
-        val_batches = math.ceil(10 / TRAIN_BATCH)
+    argv = recipe_argv(cfg) + [
+        "--input_path", npy, "--output_path", out, "--exp", "smoke",
+        "--batch_size", str(TRAIN_BATCH), "--lazy_reg", str(LOOP_LAZY), "--log_every", "1",
+        "--save_ckpt_every", "1", "--attn", "flash", "--seed", str(SEED)]
+    tcfg = parse_config(argv, mode="train")[0]
+    for field in ("image_size", "num_channels_dae", "ch_mult", "num_res_blocks",
+                  "attn_resolutions", "num_timesteps", "nz", "z_emb_dim", "t_emb_dim",
+                  "n_mlp", "ngf", "lr_g", "lr_d", "r1_gamma", "num_channels"):
+        if getattr(tcfg, field) != getattr(cfg, field):
+            raise AssertionError(f"train CLI's {field}: {getattr(tcfg, field)}")
+    steps = 20 // TRAIN_BATCH
+    val_batches = math.ceil(10 / TRAIN_BATCH)
 
-        # -- train: LOOP_EPOCHS epochs, counted
-        torch.cuda.reset_peak_memory_stats()
-        first, counts["train"], seconds["train"] = counted(
-            log, lambda: train_cli.main(argv + ["--num_epoch", str(LOOP_EPOCHS)]))
-        peak = torch.cuda.max_memory_allocated()
-        exp = first["exp_dir"]
-        n_steps = LOOP_EPOCHS * steps
-        want_r1 = [s for s in range(n_steps) if s % LOOP_LAZY == 0]
-        previews = sum(1 for e in range(LOOP_EPOCHS) if e % 10 == 0 or e == LOOP_EPOCHS - 1)
-        want = combine([(len(want_r1), struct["r1"]), (n_steps - len(want_r1), struct["no_r1"]),
-                        (previews + LOOP_EPOCHS * val_batches, struct["sample"])])
-        if counts["train"] != want or first["r1_steps"] != want_r1:
-            raise AssertionError(f"train launches {counts['train']} != structure's {want}; "
-                                 f"R1 on {first['r1_steps']}")
-        content_bytes = os.path.getsize(os.path.join(exp, ckpt.CONTENT_FILE))
+    # -- train: LOOP_EPOCHS epochs, counted
+    torch.cuda.reset_peak_memory_stats()
+    first, counts["train"], seconds["train"] = counted(
+        log, lambda: train_cli.main(argv + ["--num_epoch", str(LOOP_EPOCHS)]))
+    peak = torch.cuda.max_memory_allocated()
+    exp = first["exp_dir"]
+    n_steps = LOOP_EPOCHS * steps
+    want_r1 = [s for s in range(n_steps) if s % LOOP_LAZY == 0]
+    previews = sum(1 for e in range(LOOP_EPOCHS) if e % 10 == 0 or e == LOOP_EPOCHS - 1)
+    want = combine([(len(want_r1), struct["r1"]), (n_steps - len(want_r1), struct["no_r1"]),
+                    (previews + LOOP_EPOCHS * val_batches, struct["sample"])])
+    if counts["train"] != want or first["r1_steps"] != want_r1:
+        raise AssertionError(f"train launches {counts['train']} != structure's {want}; "
+                             f"R1 on {first['r1_steps']}")
+    content_bytes = os.path.getsize(os.path.join(exp, ckpt.CONTENT_FILE))
 
-        # -- the restore, held against content.pt tensor for tensor
-        state = create_train_state(tcfg.replace(num_epoch=LOOP_EPOCHS + 1), seed=SEED + 61,
-                                   steps_per_epoch=steps, device=DEVICE, attn="flash")
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        _, epoch, global_step = ckpt.restore_content(exp, state)
-        torch.cuda.synchronize()
-        seconds["restore"] = time.perf_counter() - t
-        saved = ckpt.load_content(exp)
-        payload_equal(ckpt.content_payload(state, epoch, global_step), saved)
-        if (epoch, global_step, state.step) != (LOOP_EPOCHS - 1, n_steps, n_steps):
-            raise AssertionError(f"content.pt at epoch {epoch}, step {global_step}")
-        if state.counts != dict.fromkeys(("g1", "g2", "d"), n_steps):
-            raise AssertionError(f"restored schedule counts {state.counts}")
-        del state, saved
+    # -- the restore, held against content.pt tensor for tensor
+    state = create_train_state(tcfg.replace(num_epoch=LOOP_EPOCHS + 1), seed=SEED + 61,
+                               steps_per_epoch=steps, device=DEVICE, attn="flash")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, epoch, global_step = ckpt.restore_content(exp, state)
+    torch.cuda.synchronize()
+    seconds["restore"] = time.perf_counter() - t
+    saved = ckpt.load_content(exp)
+    payload_equal(ckpt.content_payload(state, epoch, global_step), saved)
+    if (epoch, global_step, state.step) != (LOOP_EPOCHS - 1, n_steps, n_steps):
+        raise AssertionError(f"content.pt at epoch {epoch}, step {global_step}")
+    if state.counts != dict.fromkeys(("g1", "g2", "d"), n_steps):
+        raise AssertionError(f"restored schedule counts {state.counts}")
+    del state, saved
 
-        # -- resume: one more epoch, counted
-        torch.cuda.reset_peak_memory_stats()
-        resumed, counts["resume"], seconds["resume"] = counted(
-            log, lambda: train_cli.main(argv + ["--num_epoch", str(LOOP_EPOCHS + 1),
-                                                "--resume"]))
-        want_r1 = [s for s in range(n_steps, n_steps + steps) if s % LOOP_LAZY == 0]
-        want = combine([(len(want_r1), struct["r1"]), (steps - len(want_r1), struct["no_r1"]),
-                        (1 + val_batches, struct["sample"])])  # the last epoch's preview
-        peak_resume = torch.cuda.max_memory_allocated()
-        if counts["resume"] != want or resumed["r1_steps"] != want_r1:
-            raise AssertionError(f"resume launches {counts['resume']} != structure's {want}; "
-                                 f"R1 on {resumed['r1_steps']}")
-        with open(resumed["history"]) as f:
-            history = _json.load(f)
-        if [h["epoch"] for h in history] != list(range(LOOP_EPOCHS + 1)):
-            raise AssertionError(f"history epochs {[h['epoch'] for h in history]}")
-        if not all(math.isfinite(v) for h in history for v in h["losses"].values()) or \
-                not all(h["val_psnr"] is not None for h in history):
-            raise AssertionError("a loss or a validation PSNR is not finite")
-        files = set(os.listdir(exp))
-        need = {"content.pt", "gen_diffusive_1.pt", "gen_diffusive_2.pt",
-                f"gen_diffusive_1_{LOOP_EPOCHS}.pt", "sample_epoch_0.png",
-                f"sample_epoch_{LOOP_EPOCHS}.png", "val_l1_loss.npy", "val_psnr_values.npy",
-                "training_history.json", "train_config.json"}
-        if not need <= files:
-            raise AssertionError(f"missing artifacts {sorted(need - files)}")
-        if np.load(os.path.join(exp, "val_psnr_values.npy")).shape != (LOOP_EPOCHS + 2,
-                                                                        val_batches):
-            raise AssertionError("val_psnr_values.npy has the wrong shape")
+    # -- resume: one more epoch, counted
+    torch.cuda.reset_peak_memory_stats()
+    resumed, counts["resume"], seconds["resume"] = counted(
+        log, lambda: train_cli.main(argv + ["--num_epoch", str(LOOP_EPOCHS + 1),
+                                            "--resume"]))
+    want_r1 = [s for s in range(n_steps, n_steps + steps) if s % LOOP_LAZY == 0]
+    want = combine([(len(want_r1), struct["r1"]), (steps - len(want_r1), struct["no_r1"]),
+                    (1 + val_batches, struct["sample"])])  # the last epoch's preview
+    peak_resume = torch.cuda.max_memory_allocated()
+    if counts["resume"] != want or resumed["r1_steps"] != want_r1:
+        raise AssertionError(f"resume launches {counts['resume']} != structure's {want}; "
+                             f"R1 on {resumed['r1_steps']}")
+    with open(resumed["history"]) as f:
+        history = _json.load(f)
+    if [h["epoch"] for h in history] != list(range(LOOP_EPOCHS + 1)):
+        raise AssertionError(f"history epochs {[h['epoch'] for h in history]}")
+    if not all(math.isfinite(v) for h in history for v in h["losses"].values()) or \
+            not all(h["val_psnr"] is not None for h in history):
+        raise AssertionError("a loss or a validation PSNR is not finite")
+    files = set(os.listdir(exp))
+    need = {"content.pt", "gen_diffusive_1.pt", "gen_diffusive_2.pt",
+            f"gen_diffusive_1_{LOOP_EPOCHS}.pt", "sample_epoch_0.png",
+            f"sample_epoch_{LOOP_EPOCHS}.png", "val_l1_loss.npy", "val_psnr_values.npy",
+            "training_history.json", "train_config.json"}
+    if not need <= files:
+        raise AssertionError(f"missing artifacts {sorted(need - files)}")
+    if np.load(os.path.join(exp, "val_psnr_values.npy")).shape != (LOOP_EPOCHS + 2,
+                                                                    val_batches):
+        raise AssertionError("val_psnr_values.npy has the wrong shape")
 
-        # -- the slice test: int8 (the CLI's default, dynamic scales), then bf16
-        tests = {}
-        targv = recipe_argv(cfg) + ["--input_path", npy, "--ckpt_dir", exp, "--attn", "flash",
-                                    "--test_batch_size", str(LOOP_TEST_BATCH)]
-        n_batches = math.ceil(10 / LOOP_TEST_BATCH)
-        for tag, extra, per in (("int8", [], struct["sample_int8"]),
-                                ("bf16", ["--bf16"], struct["sample"])):
-            res, counts[f"test {tag}"], seconds[f"test {tag}"] = counted(
-                log, lambda: test_cli.main(targv + extra))
-            paths = dict(ops.int8_conv3x3.path_launches)
-            want = combine([(n_batches, per)])
-            if counts[f"test {tag}"] != want:
-                raise AssertionError(f"test {tag} launches {counts[f'test {tag}']} != {want}")
-            if paths != {"wgmma": want["int8_conv3x3"], "general": 0}:
-                raise AssertionError(f"test {tag}: K4 by path {paths}")
-            for kind in ("pred", "gt"):
-                names = sorted(os.listdir(res[f"{kind}_dir"]))
-                if names != [f"{kind}_{i:05d}.png" for i in range(10)]:
-                    raise AssertionError(f"test {tag}: {kind} files {names}")
-                for i, name in enumerate(names):
-                    if not np.array_equal(png.read_gray8(os.path.join(res[f"{kind}_dir"], name)),
-                                          res[f"{kind}_u8"][i]):
-                        raise AssertionError(f"test {tag}: {name} does not read back")
-            if res["n_slices"] != 10 or not all(math.isfinite(res[k])
-                                                for k in ("psnr", "ssim", "mae")):
-                raise AssertionError(f"test {tag}: {res}")
-            tests[tag] = {k: v for k, v in res.items() if k not in ("pred_u8", "gt_u8")}
-            tests[tag]["k4_path_launches"] = paths
+    # -- the slice test: int8 (the CLI's default, dynamic scales), then bf16
+    tests = {}
+    targv = recipe_argv(cfg) + ["--input_path", npy, "--ckpt_dir", exp, "--attn", "flash",
+                                "--test_batch_size", str(LOOP_TEST_BATCH)]
+    n_batches = math.ceil(10 / LOOP_TEST_BATCH)
+    for tag, extra, per in (("int8", [], struct["sample_int8"]),
+                            ("bf16", ["--bf16"], struct["sample"])):
+        res, counts[f"test {tag}"], seconds[f"test {tag}"] = counted(
+            log, lambda: test_cli.main(targv + extra))
+        paths = dict(ops.int8_conv3x3.path_launches)
+        want = combine([(n_batches, per)])
+        if counts[f"test {tag}"] != want:
+            raise AssertionError(f"test {tag} launches {counts[f'test {tag}']} != {want}")
+        if paths != {"wgmma": want["int8_conv3x3"], "general": 0}:
+            raise AssertionError(f"test {tag}: K4 by path {paths}")
+        for kind in ("pred", "gt"):
+            names = sorted(os.listdir(res[f"{kind}_dir"]))
+            if names != [f"{kind}_{i:05d}.png" for i in range(10)]:
+                raise AssertionError(f"test {tag}: {kind} files {names}")
+            for i, name in enumerate(names):
+                if not np.array_equal(png.read_gray8(os.path.join(res[f"{kind}_dir"], name)),
+                                      res[f"{kind}_u8"][i]):
+                    raise AssertionError(f"test {tag}: {name} does not read back")
+        if res["n_slices"] != 10 or not all(math.isfinite(res[k])
+                                            for k in ("psnr", "ssim", "mae")):
+            raise AssertionError(f"test {tag}: {res}")
+        tests[tag] = {k: v for k, v in res.items() if k not in ("pred_u8", "gt_u8")}
+        tests[tag]["k4_path_launches"] = paths
 
     timings = first["timings"]
     result = {
@@ -1782,6 +1835,372 @@ def loop_phase(cfg, card) -> dict:
     print(_json.dumps(result), flush=True)
     totals = combine([(1, c) for c in counts.values()])
     return {"launches": totals, "log": log, **result}
+
+
+def write_run_yaml(work: str, npy: str) -> str:
+    """A copy of RUN_YAML in ``work`` with only ``data_path`` (phase 7's
+    split), ``output_root`` and ``num_epoch`` (RUN_EPOCHS) changed; the
+    repo's file is read, never written.  Returns its path."""
+    from mudiff_torch.utils import yaml_lite
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), RUN_YAML)
+    with open(src) as f:
+        text = f.read()
+    out = os.path.join(work, "run_results")
+    for old, new in (("data_path: /data/BRATS\n", f"data_path: {npy}\n"),
+                     ("output_root: ./results\n", f"output_root: {out}\n"),
+                     ("    num_epoch: 30\n", f"    num_epoch: {RUN_EPOCHS}\n")):
+        if old not in text:
+            raise AssertionError(f"{RUN_YAML} no longer holds {old.strip()!r}")
+        text = text.replace(old, new)
+    path = os.path.join(work, "run.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    shipped, copy = yaml_lite.load(src), yaml_lite.load(path)
+    for a, b in zip(shipped["experiments"], copy["experiments"]):
+        if {**a["train_args"], "num_epoch": RUN_EPOCHS} != b["train_args"] or \
+                a["test_args"] != b["test_args"]:
+            raise AssertionError(f"the copy of {RUN_YAML} changed {a['exp_name']} beyond "
+                                 "num_epoch")
+    return path
+
+
+def device_busy_ms(fn) -> float:
+    """Device time of one call of ``fn``: the summed durations of its
+    device kernels under torch.profiler, CUDA activity alone (cheap to
+    collect).  A training iteration makes thousands of launches, more
+    than the launch queue holds, so the host cannot run ahead of the
+    device for a whole iteration and ``time_ms``'s spin does not hide its
+    host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum((evt.time_range.end - evt.time_range.start) / 1e3 for evt in prof.events()
+               if evt.device_type == DeviceType.CUDA
+               and not getattr(evt, "is_user_annotation", False)
+               and not evt.name.startswith("Optimizer."))
+    if not busy > 0:
+        raise AssertionError("torch.profiler saw no device kernel")
+    return busy
+
+
+def grads_against(tag: str, grads, losses, ref_grads, ref_losses) -> dict:
+    """One leg's gradients and losses against its reference leg's, as
+    ``compare_iteration`` holds kernels against plain versions (tensors
+    whose reference norm is under TINY_GRAD of their group's largest are
+    counted, not held), and how many are the same bits."""
+    loss_tol, grad_tol = TRAIN_TOL["bf16"]
+    loss_err = max(abs(losses[k] - v) / max(abs(v), 1e-12) for k, v in ref_losses.items())
+    norms = {n: float(g.float().norm()) for n, g in ref_grads.items()}
+    top = {}
+    for n, v in norms.items():
+        top[n.split(".")[0]] = max(top.get(n.split(".")[0], 0.0), v)
+    errs, same = {}, 0
+    for n, g in grads.items():
+        same += int(bool((g == ref_grads[n]).all()))
+        if norms[n] <= TINY_GRAD * top[n.split(".")[0]]:
+            continue
+        if not torch_isfinite(g):
+            raise AssertionError(f"remat {tag}: gradient of {n} is not finite")
+        errs[n] = float((g.float() - ref_grads[n].float()).norm()) / max(norms[n], 1e-30)
+    worst = max(errs, key=errs.get)
+    out = {"max_loss_rel_err": loss_err, "max_grad_rel_err": errs[worst],
+           "worst_tensor": worst, "tensors_held": len(errs),
+           "tensors_bit_identical": same, "tensors": len(grads)}
+    if loss_err > loss_tol or errs[worst] > grad_tol:
+        raise AssertionError(f"remat {tag} vs no remat: loss rel err {loss_err:.3g}, grad rel "
+                             f"err {errs[worst]:.3g} ({worst}) beyond {TRAIN_TOL['bf16']}")
+    return out
+
+
+def remat_table(cfg, card, log) -> dict:
+    """Phase 8's remat table: each leg of REMAT_LEGS at ``cfg``'s width and
+    batch.  Two train states (einsum and flash attention) hold the same
+    seeded weights; a leg sets its policy on them (the generators'
+    ``remat_regions`` as a generator built for the leg's config selects
+    them, and the state's config, which decides the critic's remat).
+    First, at the initial weights and the same draws, one D (R1) + G
+    iteration per leg, counted (into ``log``) and its gradients held
+    against the no-remat leg of its attention, whose own repeat gives the
+    run-to-run floor; the counts must exceed the no-remat leg's for every
+    kernel the remat recomputes (K1, K2a, K2b; and K3's forward under
+    flash).  Then per leg a warm-up, REMAT_ITERS wall-timed iterations (no
+    R1; the peak memory above the state's) and REMAT_ITERS profiled ones
+    (``device_busy_ms``): wall and device-only medians."""
+    import torch
+
+    from mudiff_torch import ops
+    from mudiff_torch.models import NCSNppGenerator
+    from mudiff_torch.train import TrainDraws, create_train_state, make_train_step
+
+    base = cfg.replace(use_grad_checkpoint=False)
+    states = {}
+    for attn in ("einsum", "flash"):
+        states[attn] = create_train_state(base, seed=SEED, steps_per_epoch=1000, device=DEVICE,
+                                          attn=attn)
+    wgen = torch.Generator(DEVICE).manual_seed(SEED + 70)
+    for m in ("g1", "g2", "d"):
+        randomize_(getattr(states["einsum"], m), wgen)
+        getattr(states["flash"], m).load_state_dict(getattr(states["einsum"], m).state_dict())
+    bgen = torch.Generator(DEVICE).manual_seed(SEED + 71)
+    shape = (cfg.batch_size, cfg.image_size, cfg.image_size, 1)
+    batch = [torch.randn(shape, generator=bgen, device=DEVICE).tanh() for _ in range(4)]
+    dgen = torch.Generator(DEVICE).manual_seed(SEED + 72)
+    draws = tuple(TrainDraws.draw(base, batch[3], dgen) for _ in range(2))
+
+    def set_policy(state, policy):
+        leg = base if policy is None else base.replace(use_grad_checkpoint=True,
+                                                       grad_checkpoint_policy=policy)
+        state.config = leg
+        with torch.device("meta"):
+            for g in (state.g1, state.g2):
+                g.remat_regions = NCSNppGenerator(leg, adaptive=g.adaptive,
+                                                  device="meta").remat_regions
+        return leg
+
+    legs, refs = [], {}
+    for tag, policy, attn in REMAT_LEGS:
+        state = states[attn]
+        leg = set_policy(state, policy)
+        with ops.record_calls(log):
+            losses, grads, counts = iteration_grads(state, batch, draws, plain=False)
+        logged = ops.launch_counts()  # the D + G iteration and R1 alone, as ``log``
+        repeat = None
+        if policy is None:  # the floor: the same iteration again, no remat
+            r_losses, r_grads, _ = iteration_grads(state, batch, draws, plain=False)
+            repeat = grads_against(f"{tag} again", r_grads, r_losses, grads, losses)
+            del r_grads
+        row = {"leg": tag, "policy": policy or "none", "attn": attn,
+               "regions": len(state.g1.remat_regions) + len(state.g2.remat_regions),
+               "critic_rematted": leg.use_grad_checkpoint
+               and leg.grad_checkpoint_policy == "blocks",
+               "launches": counts, "logged_launches": logged}
+        if repeat is not None:
+            row["repeat_vs_itself"] = repeat
+        if policy is None:
+            want = state.kernel_launches_per_iteration(with_r1=True)
+            if counts != want:
+                raise AssertionError(f"remat {tag}: launches {counts} != structure's {want}")
+            refs[attn] = (grads, losses, counts)
+        else:
+            ref_grads, ref_losses, ref_counts = refs[attn]
+            row["vs_no_remat"] = grads_against(tag, grads, losses, ref_grads, ref_losses)
+            recomputed = ["conv3x3", "fir_down2", "fir_up2"] + (["flash_attn"]
+                                                               if attn == "flash" else [])
+            fewer = [k for k in recomputed if not counts[k] > ref_counts[k]]
+            if fewer:
+                raise AssertionError(f"remat {tag}: launches of {fewer} ({counts}) do not "
+                                     f"exceed the no-remat leg's ({ref_counts})")
+        del grads
+        legs.append(row)
+    refs.clear()
+
+    tgen = torch.Generator(DEVICE).manual_seed(SEED + 73)
+    train_step = make_train_step(base)
+    for row in legs:
+        state = states[row["attn"]]
+        set_policy(state, None if row["policy"] == "none" else row["policy"])
+        step = lambda: train_step(state, batch, tgen, with_r1=False)  # noqa: E731
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()  # warm-up: cuDNN picks its algorithms at new shapes
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        walls = []
+        for _ in range(REMAT_ITERS):
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated()
+        devs = [device_busy_ms(step) for _ in range(REMAT_ITERS)]
+        wall = sorted(walls)[len(walls) // 2]
+        dev = sorted(devs)[len(devs) // 2]
+        row.update({"warmup_s": warm_s, "wall_s": walls, "wall_s_median": wall,
+                    "device_ms_median": dev, "device_ms": devs,
+                    "idle_share": 1.0 - dev / (1e3 * wall),
+                    "peak_bytes": peak, "peak_above_state_bytes": peak - held})
+        print(json.dumps({"card": card, "phase": "remat table", **row}), flush=True)
+    del states
+    table = {"card": card, "phase": "remat table", "nf": cfg.num_channels_dae,
+             "image": cfg.image_size, "batch": cfg.batch_size, "dtype": "bf16",
+             "iterations": REMAT_ITERS, "legs": [
+                 {k: r[k] for k in ("leg", "device_ms_median", "wall_s_median",
+                                    "idle_share", "peak_bytes", "peak_above_state_bytes")}
+                 | {"launches": {k: r["launches"][k] for k in
+                                 ("conv3x3", "fir_down2", "fir_up2", "flash_attn",
+                                  "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}}
+                 for r in legs]}
+    print(json.dumps(table), flush=True)
+    return {"legs": legs}
+
+
+def run_phase(card, work: str) -> dict:
+    """Phase 8: the shipped experiment through the port's own CLIs at
+    nf=128 on phase 7's split (``work``), then the remat table, under
+    PyTorch's default cuDNN settings.  Every CLI run is counted
+    (``run_launches``), the table's iterations apart (``remat_launches``)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    # the CLIs run as a user runs them: PyTorch's defaults (cuDNN picks by
+    # heuristic, TF32 in its convs); the smoke's settings come back after
+    saved = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        return _run_phase(card, work, t_phase)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _run_phase(card, work: str, t_phase: float) -> dict:
+    import numpy as np
+    import torch
+
+    from mudiff_torch import ops
+    from mudiff_torch.cli import calibrate_int8, check_pipeline, metric_calc, \
+        predict_volume_wrapper, run
+    from mudiff_torch.cli import test as test_cli
+    from mudiff_torch.config import _config_from_yaml, load_experiment
+    from mudiff_torch.infer import load_generators
+    from mudiff_torch.train import checkpoint as ckpt
+
+    npy, raw = os.path.join(work, "npy"), os.path.join(work, "raw")
+    path = write_run_yaml(work, npy)
+    doc, exp = load_experiment(path, RUN_EXPERIMENT)
+    args = (doc["data_path"], doc["output_root"], RUN_EXPERIMENT, exp["target"])
+    tcfg = _config_from_yaml(exp["train_args"], *args)
+    test_cfg = _config_from_yaml(exp["test_args"], *args)
+    shipped = (tcfg.num_channels_dae, tuple(tcfg.ch_mult), tcfg.batch_size,
+               tcfg.use_grad_checkpoint, tcfg.grad_checkpoint_policy, tcfg.lazy_reg,
+               tcfg.use_bf16, tcfg.image_size, tcfg.num_epoch)
+    if shipped != (RUN_NF, (1, 2, 4), 2, True, "hires", 16, True, IMAGE, RUN_EPOCHS):
+        raise AssertionError(f"{RUN_YAML}'s {RUN_EXPERIMENT} reads {shipped}")
+    log, counts, seconds = [], {}, {}
+
+    # -- pre-flight on the card: deps, CUDA, nvcc, the YAML, the flags, the data
+    t = time.perf_counter()
+    try:
+        check_pipeline.main(["-c", path, "--require-data"])
+    except SystemExit as e:
+        raise AssertionError(f"check_pipeline failed ({e.code})") from e
+    seconds["check_pipeline"] = time.perf_counter() - t
+
+    # -- train one epoch and test, counted
+    torch.cuda.reset_peak_memory_stats()
+    res, counts["run"], seconds["run"] = counted(
+        log, lambda: run.main(["-c", path, "-e", RUN_EXPERIMENT]))
+    peak = torch.cuda.max_memory_allocated()
+    exp_dir = res["exp_dir"]
+    timings = res["train"]["timings"]
+    files = set(os.listdir(exp_dir))
+    need = {"session_metadata.json", "test_metrics.json", ckpt.CONTENT_FILE,
+            "gen_diffusive_1.pt", "gen_diffusive_2.pt", "training_history.json",
+            "train_config.json", "generated_samples"}
+    if not need <= files:
+        raise AssertionError(f"run: missing {sorted(need - files)}")
+    with open(os.path.join(exp_dir, "test_metrics.json")) as f:
+        metrics = json.load(f)
+    with open(os.path.join(exp_dir, "session_metadata.json")) as f:
+        meta = json.load(f)
+    test = res["test"]
+    if test["n_slices"] != 10 or not all(math.isfinite(metrics[k])
+                                         for k in ("psnr", "ssim", "mae")):
+        raise AssertionError(f"run's test: {test['n_slices']} slices, {metrics}")
+    if len(timings["iteration_s"]) != 10 * RUN_EPOCHS:
+        raise AssertionError(f"run trained {len(timings['iteration_s'])} iterations")
+    idle = [k for k in ("conv3x3", "fir_down2", "fir_up2") if not counts["run"][k]]
+    if idle or counts["run"]["int8_conv3x3"] or counts["run"]["flash_attn"]:
+        raise AssertionError(f"run launches {counts['run']}")
+
+    # -- offline metrics on the run's PNGs: the run's values
+    pred_dir, gt_dir = test["pred_dir"], test["gt_dir"]
+    t = time.perf_counter()
+    offline = metric_calc.main(["--pred_dir", pred_dir, "--gt_dir", gt_dir])
+    seconds["metric_calc"] = time.perf_counter() - t
+    if any(offline[k] != metrics[k] for k in ("psnr", "ssim", "mae")):
+        raise AssertionError(f"metric_calc {offline} != the run's {metrics}")
+    t = time.perf_counter()
+    offline_rand = metric_calc.main(["--pred_dir", pred_dir, "--gt_dir", gt_dir,
+                                     "--lpips_rand"])
+    seconds["metric_calc lpips_rand"] = time.perf_counter() - t
+    if not math.isfinite(offline_rand["lpips_rand"]):
+        raise AssertionError(f"lpips_rand {offline_rand}")
+
+    # -- int8: calibrate, then the test on the sidecars (K4)
+    cal, counts["calibrate"], seconds["calibrate"] = counted(
+        log, lambda: calibrate_int8.main(["-c", path, "-e", RUN_EXPERIMENT,
+                                          "--batches", str(RUN_CALIB_BATCHES)]))
+    if not counts["calibrate"]["int8_conv3x3"]:
+        raise AssertionError(f"calibrate_int8 launches {counts['calibrate']}")
+    g1, g2 = load_generators(test_cfg.replace(use_int8=True), exp_dir, device=DEVICE)
+    loaded = {name: {"sites": len(g.int8_calib.sites), "min_ch": g.int8_calib.min_ch}
+              for name, g in (("g1", g1), ("g2", g2)) if g.int8_calib is not None}
+    del g1, g2
+    print(json.dumps({"card": card, "phase": "run: int8 sidecars loaded", "sidecars": loaded,
+                      "calibration_batches": cal["indices"]}), flush=True)
+    if len(loaded) != 2:
+        raise AssertionError("load_generators did not load both sidecars")
+    targv = recipe_argv(test_cfg) + ["--input_path", npy, "--ckpt_dir", exp_dir,
+                                     "--int8_static", "--test_batch_size", "8"]
+    res8, counts["test int8"], seconds["test int8"] = counted(
+        log, lambda: test_cli.main(targv))
+    k4_paths = dict(ops.int8_conv3x3.path_launches)
+    if not counts["test int8"]["int8_conv3x3"] or \
+            k4_paths != {"wgmma": counts["test int8"]["int8_conv3x3"], "general": 0}:
+        raise AssertionError(f"int8 test launches {counts['test int8']}, K4 by path {k4_paths}")
+
+    # -- the volume wrapper on one of phase 7's patients
+    patient = os.path.join(raw, "BraTS-00000")
+    out_dir = os.path.join(work, "wrapper_out")
+    vol_path, counts["wrapper"], seconds["wrapper"] = counted(
+        log, lambda: predict_volume_wrapper.main(
+            ["--patient_dir", patient, "--target_modality", "T1CE", "--config", path,
+             "--experiment", RUN_EXPERIMENT, "--ckpt_dir", exp_dir, "--output_dir", out_dir,
+             "--slice_half_range", str(WRAPPER_HALF), "--batch_size", "8"]))
+    check_volume(vol_path, LOOP_VOLUME, WRAPPER_HALF)
+    seconds["clis"] = time.perf_counter() - t_phase
+
+    result = {
+        "card": card, "phase": "run (the shipped experiment through the port's CLIs)",
+        "yaml": RUN_YAML, "experiment": RUN_EXPERIMENT, "nf": tcfg.num_channels_dae,
+        "batch": tcfg.batch_size, "remat": tcfg.grad_checkpoint_policy,
+        "epochs": RUN_EPOCHS, "seconds": seconds,
+        "iteration_s": timings["iteration_s"],
+        "iteration_s_median": float(np.median(timings["iteration_s"])),
+        "max_memory_allocated_bytes": peak,
+        "content_bytes": os.path.getsize(os.path.join(exp_dir, ckpt.CONTENT_FILE)),
+        "content_save_s": timings["content_save_s"], "validation_s": timings["val_s"],
+        "test_slices_per_s": test["n_slices"] / test["seconds"]["sample_s"],
+        "test_seconds": test["seconds"], "metrics": metrics,
+        "metric_calc": offline, "lpips_rand": offline_rand["lpips_rand"],
+        "int8_test": {k: res8[k] for k in ("psnr", "ssim", "mae", "n_slices")}
+        | {"slices_per_s": res8["n_slices"] / res8["seconds"]["sample_s"],
+           "k4_path_launches": k4_paths},
+        "session_devices": meta.get("devices"), "launch_counts": counts,
+        "cudnn": {"benchmark": torch.backends.cudnn.benchmark,
+                  "allow_tf32": torch.backends.cudnn.allow_tf32},
+    }
+    print(json.dumps(result), flush=True)
+
+    # -- the remat table
+    t = time.perf_counter()
+    remat_log = []
+    table = remat_table(tcfg, card, remat_log)
+    seconds["remat_table"] = time.perf_counter() - t
+    seconds["phase"] = time.perf_counter() - t_phase
+    print(json.dumps({"card": card, "phase": "run", "seconds": seconds}), flush=True)
+    remat_counts = combine([(1, r["logged_launches"]) for r in table["legs"]])
+    return {"launches": combine([(1, c) for c in counts.values()]), "log": log,
+            "remat_launches": remat_counts, "remat_log": remat_log, "table": table,
+            **result}
 
 
 # Device kernels of a request, grouped by the first group one of whose
@@ -1918,7 +2337,7 @@ def main(argv=None) -> int:
 
     print(json.dumps({"graph_recording_calls": grad_runs_through_kernels(DEVICE)}), flush=True)
 
-    # injected noise of the whole-sample comparisons (phase 9, the int8 leg)
+    # injected noise of the whole-sample comparisons (phase 10, the int8 leg)
     zgen = torch.Generator(DEVICE).manual_seed(SEED + 30)
     x_init = torch.randn((BATCH, IMAGE, IMAGE, 1), generator=zgen, device=DEVICE)
     noise = [(torch.randn((BATCH, cfg.nz), generator=zgen, device=DEVICE),
@@ -1934,13 +2353,17 @@ def main(argv=None) -> int:
     # -- the training iteration, K3's backward on the path ---------------------
     train = training_phase(cfg, card)
 
-    # -- the training program and the slice test through their CLIs ------------
-    loop = loop_phase(cfg, card)
+    with tempfile.TemporaryDirectory() as work:
+        # -- the training program and the slice test through their CLIs --------
+        loop = loop_phase(cfg, card, work)
+        # -- the shipped experiment through the YAML runner at nf=128, remat ----
+        runp = run_phase(card, work)
 
     counts = shape_counts({"launches": log, "volume_launches": volume["log"],
                            "train_launches": train["log"], "int8_launches": int8["log"],
                            "int8_volume_launches": volume["int8_log"],
-                           "loop_launches": loop["log"]})
+                           "loop_launches": loop["log"], "run_launches": runp["log"],
+                           "remat_launches": runp["remat_log"]})
     fir_shapes = {(kname, *key, 0): c for kname in ("fir_down2", "fir_up2")
                   for key, c in counts[kname].items()}
     fir_shapes.update({(kname, shape, torch.bfloat16, offset): dict.fromkeys(PATHS, 0)
@@ -2029,13 +2452,30 @@ def main(argv=None) -> int:
     if idle:
         raise AssertionError(f"the train-loop phase never launched {idle}")
     print(json.dumps({"card": card, "loop_phase_kernels": on_loop}), flush=True)
+    # phase 8: the CLIs launch K1, K2a, K2b and K4; the remat table K1-K3
+    on_run = [kernel_summary(k, rows, runp["launches"][k], "run_launches")
+              for k in ops.KERNEL_WRAPPERS if runp["launches"][k]]
+    idle = [k for k in ("conv3x3", "fir_down2", "fir_up2", "int8_conv3x3")
+            if not runp["launches"][k]]
+    if idle:
+        raise AssertionError(f"phase 8's CLI runs never launched {idle}")
+    print(json.dumps({"card": card, "run_phase_kernels": on_run}), flush=True)
+    on_remat = [kernel_summary(k, rows, runp["remat_launches"][k], "remat_launches")
+                for k in ops.KERNEL_WRAPPERS if runp["remat_launches"][k]]
+    idle = [k for k in ops.KERNEL_WRAPPERS
+            if k != "int8_conv3x3" and not runp["remat_launches"][k]]
+    if idle:
+        raise AssertionError(f"the remat table never launched {idle}")
+    print(json.dumps({"card": card, "remat_table_kernels": on_remat}), flush=True)
     kernels = [kernel_summary(k, rows, counted[k]) for k in ops.KERNEL_WRAPPERS]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build": build, "rows": rows, "kernels": kernels,
                        "volume_phase_kernels": on_volume, "training_phase_kernels": on_train,
                        "int8_leg_kernels": on_int8, "loop_phase_kernels": on_loop,
+                       "run_phase_kernels": on_run, "remat_table_kernels": on_remat,
                        "loop": {k: v for k, v in loop.items() if k != "log"},
+                       "run": {k: v for k, v in runp.items() if k not in ("log", "remat_log")},
                        "int8": {k: v for k, v in int8.items() if k != "log"}
                        | {"calibs": [c.to_json_dict() for c in int8["calibs"]]},
                        "volume": {k: v for k, v in volume.items()

@@ -14,9 +14,15 @@ experiment's directory; W8A8 int8 unless ``--bf16``), writes the
 import json
 import time
 
+from mudiff_torch.cli.args import build_parser as _mode_parser
 from mudiff_torch.cli.args import parse_config
 from mudiff_torch.infer.slice_test import sample_and_test
 from mudiff_torch.metrics import evaluate_pair_dirs
+
+
+def build_parser():
+    """The CLI's parser (``check_pipeline`` reads its flags)."""
+    return _mode_parser("test")
 
 
 def main(argv=None, device=None) -> dict:

@@ -14,14 +14,20 @@ requires them, ``--int8_dynamic`` ignores them); ``--bf16`` serves
 exactly in bf16.
 """
 
+from mudiff_torch.cli.args import build_parser as _mode_parser
 from mudiff_torch.cli.args import parse_config
 from mudiff_torch.infer.volume import VOLUME_ORDERS, predict_volume
+
+
+def build_parser():
+    """The CLI's parser (``check_pipeline`` reads its flags)."""
+    return _mode_parser("test_volume")
 
 
 def main(argv=None, device=None) -> str:
     """Run the CLI; ``device`` (default the card) is for the tests only.
     Returns the output NIfTI path."""
-    cfg, args = parse_config(argv)
+    cfg, args = parse_config(argv, mode="test_volume")
     provided = {
         "T1CE": args.input_t1ce,
         "T1": args.input_t1,

@@ -11,8 +11,14 @@ It trains on one device; there is no distributed initialisation
 ``mudiff_torch/train/loop.py``.
 """
 
+from mudiff_torch.cli.args import build_parser as _mode_parser
 from mudiff_torch.cli.args import parse_config
 from mudiff_torch.train.loop import train
+
+
+def build_parser():
+    """The CLI's parser (``check_pipeline`` reads its flags)."""
+    return _mode_parser("train")
 
 
 def main(argv=None, device=None) -> dict:

@@ -3,7 +3,10 @@
 A copy of ``mudiff_tpu/config.py`` (``MuDiffConfig``, ``_as_int_list``,
 ``brats_recipe``): the port imports nothing of the JAX package, so it
 keeps its own.  Field names, defaults and the recipe must stay equal to
-the JAX copy; ``tests/test_torch_port_generator.py`` checks that.
+the JAX copy; ``tests/test_torch_port_generator.py`` checks that.  The
+YAML experiment layer (``_IGNORED_KEYS``, ``_config_from_yaml``,
+``load_experiment``) is the port's copy of ``mudiff_tpu/cli/run.py:34-72``;
+the files are read by ``utils/yaml_lite.py``.
 
 One dataclass backs every public flag of the reference CLIs
 (reference: engine/train.py:1318-1446, engine/test.py:401-485,
@@ -84,9 +87,11 @@ class MuDiffConfig:
     # parsed + printed but never applied in the reference loss
     # (engine/train.py:1006 vs :1409) — kept for flag parity.
     lambda_adv: float = 1.0
-    # The training and parallelism fields below are kept so that a config
-    # round-trips between the two packages; the port does not read them yet
-    # (ROADMAP.md).  use_int8 and int8_static select W8A8 serving and its
+    # remat scope when use_grad_checkpoint (models/generator.py): "blocks"
+    # (every block, and the critic in the G step) or "hires" / "hiresN"
+    # (the blocks at resolution >= image_size / N, N = 2 for "hires");
+    # the full-resolution stems, encode and fusion are rematted under
+    # either.  use_int8 and int8_static select W8A8 serving and its
     # static scales (models/generator.py, infer/generators.py).
     use_grad_checkpoint: bool = False
     grad_checkpoint_policy: str = "blocks"
@@ -137,6 +142,41 @@ class MuDiffConfig:
     def from_dict(cls, d: Dict[str, Any]) -> "MuDiffConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+# Reference flags with no meaning on one card, accepted in a YAML for
+# parity and dropped (``mudiff_tpu/cli/run.py:34-37``).
+_IGNORED_KEYS = {
+    "gpu_chose", "compute_fid", "num_proc_node", "num_process_per_node",
+    "node_rank", "local_rank", "master_address", "port_num",
+}
+
+
+def _config_from_yaml(args_dict: Optional[Dict[str, Any]], data_path: str,
+                      output_root: str, exp_name: str, target: str) -> MuDiffConfig:
+    """An experiment's ``train_args`` or ``test_args`` as a config, with
+    the runner's defaults: ``input_path`` (the file's ``data_path``),
+    ``output_path`` (``output_root``), ``exp`` and ``target_modality``."""
+    d = {k: v for k, v in (args_dict or {}).items() if k not in _IGNORED_KEYS}
+    d.setdefault("input_path", data_path)
+    d.setdefault("output_path", output_root)
+    d.setdefault("exp", exp_name)
+    d.setdefault("target_modality", target)
+    return MuDiffConfig.from_dict(d)
+
+
+def load_experiment(cfg_path: str, exp_name: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(the YAML document, its experiment named ``exp_name``); raises
+    ``ValueError`` naming the experiments the file has."""
+    from mudiff_torch.utils import yaml_lite
+
+    doc = yaml_lite.load(cfg_path)
+    experiments = doc.get("experiments", []) if isinstance(doc, dict) else []
+    match = [e for e in experiments if e.get("exp_name") == exp_name]
+    if not match:
+        names = [e.get("exp_name") for e in experiments]
+        raise ValueError(f"experiment {exp_name!r} not found; have {names}")
+    return doc, match[0]
 
 
 def _as_int_list(v: Any) -> List[int]:

@@ -192,3 +192,19 @@ def export_generators(params_g1: Mapping[str, Any], params_g2: Mapping[str, Any]
         torch.save(params_from_flax(params), path)
         paths.append(path)
     return tuple(paths)
+
+
+def lpips_from_flax(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX package's LPIPS parameters (``mudiff_tpu/metrics/lpips.py``:
+    ``conv<i>/kernel`` HWIO, ``conv<i>/bias``, ``lin<i>``) in the port's
+    layout (``metrics/lpips.py``: ``conv<i>`` weight OIHW)."""
+    out: Dict[str, Any] = {}
+    for name, value in params.items():
+        if name.startswith("conv"):
+            kernel = np.asarray(value["kernel"], np.float32)
+            out[name] = {"weight": torch.from_numpy(np.ascontiguousarray(
+                             kernel.transpose(3, 2, 0, 1))),
+                         "bias": torch.from_numpy(np.array(value["bias"], np.float32))}
+        else:
+            out[name] = torch.from_numpy(np.array(value, np.float32).reshape(-1))
+    return out

@@ -8,8 +8,10 @@ follows skimage's default spec: 7x7 uniform filter (scipy's
 covariance (N/(N-1)), cropped to the valid region.
 
 ``evaluate_pair_dirs`` reads the PNG pairs through the port's own codec
-(``utils/png.py``).  LPIPS is not ported: a scorer can be passed as
-``lpips_fn``, and nothing reads an environment variable for one.
+(``utils/png.py``).  LPIPS (``metrics/lpips.py``) is passed as
+``lpips_fn``, and nothing reads an environment variable for one; its
+values go under the scorer's ``key`` (``lpips`` or ``lpips_rand``,
+``mudiff_tpu/metrics/image_metrics.py:93-99``).
 """
 
 from __future__ import annotations
@@ -93,7 +95,8 @@ def evaluate_pair_dirs(
     assert len(preds) == len(gts) and preds, (
         f"mismatched dirs: {len(preds)} preds vs {len(gts)} gts"
     )
-    acc = {"psnr": [], "ssim": [], "mae": [], "lpips": []}
+    lpips_key = getattr(lpips_fn, "key", "lpips")
+    acc = {"psnr": [], "ssim": [], "mae": [], lpips_key: []}
     for pf, gf in zip(preds, gts):
         p = read_gray8(os.path.join(pred_dir, pf)).astype(np.float32) / 255.0
         g = read_gray8(os.path.join(gt_dir, gf)).astype(np.float32) / 255.0
@@ -101,7 +104,7 @@ def evaluate_pair_dirs(
         acc["ssim"].append(ssim(g, p))
         acc["mae"].append(mae(g, p))
         if lpips_fn is not None:
-            acc["lpips"].append(lpips_fn(g, p))
+            acc[lpips_key].append(lpips_fn(g, p))
     out = {
         k: float(np.mean(v)) for k, v in acc.items() if v
     }

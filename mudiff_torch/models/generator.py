@@ -23,12 +23,27 @@ conv that ``int8_conv_routed`` admits at the generator's threshold runs
 kernel K4 (W8A8), with dynamic per-example scales or, given an
 ``Int8Calib``, the calibration's static scales, site by site in forward
 order.
+
+With ``config.use_grad_checkpoint`` (training) the forward recomputes
+regions in the backward instead of keeping their activations
+(``mudiff_tpu/models/generator.py:195-245``, ``nn/remat.py``): under
+``grad_checkpoint_policy`` ``"blocks"`` (or any string that is not
+``"hires..."``) every resblock and attention block; under ``"hiresN"``
+those at resolution >= image_size / N (``"hires"``: N = 2).  The
+full-resolution regions outside the blocks are rematted under every
+policy: G1's fused stems, G2's adaptive encode and its gate fusion
+(``:299-303, :353-357, :415-419``).  ``remat_regions`` names them.
+
+Dropout (``config.dropout > 0``) runs in training mode when the forward
+is given ``dropout_seeds``, one per resblock in forward order
+(``resblock_count``), as the training steps do; otherwise the forward is
+deterministic, as flax's ``train=False``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -51,6 +66,7 @@ from mudiff_torch.nn.fused_stems import (
     fused_gate_convs,
     fused_weight_convs,
 )
+from mudiff_torch.nn import remat
 from mudiff_torch.nn.initializers import default_init
 from mudiff_torch.nn.layers import Conv3x3, Dense, get_timestep_embedding, pixel_norm
 from mudiff_torch.ops import KERNEL_WRAPPERS
@@ -92,6 +108,24 @@ def _check_config(cfg: MuDiffConfig, num_conditions: int) -> None:
         raise _unsupported("num_conditions=2")
     if not cfg.fir:
         raise _unsupported("fir=False resampling")
+
+
+def remat_cut(cfg: MuDiffConfig) -> Optional[int]:
+    """The least resolution whose blocks are rematted (0: every block),
+    or None without ``use_grad_checkpoint``
+    (``mudiff_tpu/models/generator.py:195-207``)."""
+    if not cfg.use_grad_checkpoint:
+        return None
+    policy = cfg.grad_checkpoint_policy
+    if policy.startswith("hires"):
+        return cfg.image_size // int(policy[5:] or "2")
+    return 0
+
+
+def resblock_count(cfg: MuDiffConfig) -> int:
+    """Resblocks in one generator's forward: the dropout seeds it takes."""
+    levels, nrb = len(cfg.ch_mult), cfg.num_res_blocks
+    return levels * nrb + (levels - 1) + 2 + levels * (nrb + 1) + (levels - 1)
 
 
 class _ZTransform(nn.Module):
@@ -163,7 +197,7 @@ class NCSNppGenerator(nn.Module):
             return ResnetBlockBigGANppAdagn(
                 in_ch, out_ch, temb_dim=temb_dim, zemb_dim=cfg.z_emb_dim,
                 up=up, down=down, fir_kernel=cfg.fir_kernel,
-                skip_rescale=cfg.skip_rescale, init_scale=0.0, **kw,
+                skip_rescale=cfg.skip_rescale, init_scale=0.0, dropout=cfg.dropout, **kw,
             )
 
         def attnblock(ch):
@@ -192,19 +226,20 @@ class NCSNppGenerator(nn.Module):
 
         # encoder
         self._trunk: List[tuple] = []  # (kind, name) in forward order
+        self._res: Dict[str, int] = {}  # a block's resolution, for the remat policy
         hs_c = [4 * nf]
         pyramid_ch = cfg.num_channels
         residual_input = cfg.progressive_input.lower() == "residual"
         for i_level, res in enumerate(self.all_resolutions):
             for i_block in range(nrb):
                 out_ch = nf * ch_mult[i_level]
-                self._add(f"down_{i_level}_{i_block}", resblock(hs_c[-1], out_ch))
+                self._add(f"down_{i_level}_{i_block}", resblock(hs_c[-1], out_ch), res=res)
                 if res in cfg.attn_resolutions:
-                    self._add(f"down_attn_{i_level}_{i_block}", attnblock(out_ch))
+                    self._add(f"down_attn_{i_level}_{i_block}", attnblock(out_ch), res=res)
                 hs_c.append(out_ch)
             if i_level != len(ch_mult) - 1:
                 self._add(f"downsample_{i_level}", resblock(hs_c[-1], down=True),
-                          kind="downsample")
+                          kind="downsample", res=res)
                 if residual_input:
                     self._add(
                         f"pyramid_downsample_{i_level}",
@@ -225,21 +260,45 @@ class NCSNppGenerator(nn.Module):
             for i_block in range(nrb + 1):
                 out_ch = nf * ch_mult[i_level]
                 self._add(f"up_{i_level}_{i_block}",
-                          resblock(ch + hs_c.pop(), out_ch), kind="skip")
+                          resblock(ch + hs_c.pop(), out_ch), kind="skip",
+                          res=self.all_resolutions[i_level])
                 ch = out_ch
             if self.all_resolutions[i_level] in cfg.attn_resolutions:
-                self._add(f"up_attn_{i_level}", attnblock(ch))
+                self._add(f"up_attn_{i_level}", attnblock(ch),
+                          res=self.all_resolutions[i_level])
             if i_level != 0:
-                self._add(f"upsample_{i_level}", resblock(ch, up=True))
+                self._add(f"upsample_{i_level}", resblock(ch, up=True),
+                          res=self.all_resolutions[i_level])
         assert not hs_c
+
+        # remat: the blocks the policy selects (the middle ones sit at the
+        # lowest resolution; the pyramid convs are never rematted), and the
+        # full-resolution regions outside the blocks
+        cut = remat_cut(cfg)
+        self.remat_regions = set()
+        if cut is not None:
+            self.remat_regions = {name for kind, name in self._trunk
+                                  if kind != "pyramid" and self._res[name] >= cut}
+            self.remat_regions |= {"encode", "fuse"} if adaptive else {"stems"}
+        self._resblocks = [name for _, name in self._trunk
+                           if isinstance(getattr(self, name), ResnetBlockBigGANppAdagn)]
+        assert len(self._resblocks) == resblock_count(cfg)
 
         self.final_norm = AffineGroupNorm(_num_groups(ch), ch, **kw)
         self.final_conv = Conv3x3(ch, cfg.num_channels, init_scale=0.0, **kw)
         self.reset_parameters(generator)
 
-    def _add(self, name: str, module: nn.Module, kind: str = "block") -> None:
+    def _add(self, name: str, module: nn.Module, kind: str = "block",
+             res: Optional[int] = None) -> None:
         setattr(self, name, module)
         self._trunk.append((kind, name))
+        self._res[name] = self.all_resolutions[-1] if res is None else res
+
+    def _region(self, name: str, fn, *args):
+        """``fn(*args)``, rematted when ``name`` is in ``remat_regions``."""
+        if name in self.remat_regions:
+            return remat.checkpointed(name, fn, *args)
+        return fn(*args)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Draw the JAX package's initial distributions (CPU generator)."""
@@ -298,22 +357,30 @@ class NCSNppGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, cond1: torch.Tensor, cond2: torch.Tensor,
                 cond3: torch.Tensor, time_cond: torch.Tensor, z: torch.Tensor,
-                pseudo_target: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.training and self.config.dropout > 0:
-            raise _unsupported("dropout > 0 in training")
+                pseudo_target: Optional[torch.Tensor] = None,
+                dropout_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        seeds = {}
+        if self.training and dropout_seeds is not None and self.config.dropout > 0:
+            if len(dropout_seeds) != len(self._resblocks):
+                raise ValueError(f"{len(dropout_seeds)} dropout seeds for "
+                                 f"{len(self._resblocks)} resblocks")
+            seeds = dict(zip(self._resblocks, (int(s) for s in dropout_seeds)))
         # The scope covers the whole forward; in training mode it is off
         # (int8 is inference only: no straight-through estimator).
         with int8_scope(self.int8_serving(), min_ch=self.int8_min_ch,
                         calib=self.int8_calib) as scope:
-            out = self._forward(x, cond1, cond2, cond3, time_cond, z, pseudo_target)
+            out = self._forward(x, cond1, cond2, cond3, time_cond, z, pseudo_target, seeds)
         if scope.enabled and not recording():
             scope.check_consumed()
         return out
 
-    def _forward(self, x, cond1, cond2, cond3, time_cond, z, pseudo_target):
+    def _forward(self, x, cond1, cond2, cond3, time_cond, z, pseudo_target, seeds):
         cfg = self.config
         dt = self.dtype
         act = F.silu
+        # the int8 weight caches are serving state: a training forward (and
+        # its recompute) never reads or fills them
+        caches = dict.fromkeys(self._int8_caches) if self.training else self._int8_caches
 
         zemb = self.z_transform(z)
         temb = None
@@ -330,30 +397,35 @@ class NCSNppGenerator(nn.Module):
         if not self.adaptive:
             stems = [self.encoder_x] + [getattr(self, f"encoder_c{i + 1}")
                                         for i in range(len(conds))]
-            h = fused_convfeat_apply(torch.cat([x] + conds, dim=-1), stems, act, dt,
-                                     self._int8_caches["stems"])
+            h = self._region(
+                "stems", lambda s: fused_convfeat_apply(s, stems, act, dt, caches["stems"]),
+                torch.cat([x] + conds, dim=-1))
         else:
             if pseudo_target is None:
                 raise ValueError("G2 needs pseudo_target (G1's prediction)")
             pcs = [getattr(self, f"encoder_c{i + 1}") for i in range(len(conds))]
-            x_feat, feats, _ = fused_adaptive_encode(
-                x, conds, pseudo_target.to(dt), self.encoder_x, pcs,
-                self.pseudo_gap, act, dt, self._int8_caches["stems"],
-            )
+
+            def encode(x_, c1, c2, c3, pseudo):
+                x_feat, feats, _ = fused_adaptive_encode(
+                    x_, [c1, c2, c3], pseudo, self.encoder_x, pcs, self.pseudo_gap,
+                    act, dt, caches["stems"])
+                return (x_feat, *feats)
+
+            def fuse3(allc, c1, c2, c3, x_feat):
+                a1_12, a2_12, a1_23, a2_23, a1_31, a2_31 = fused_gate_convs(
+                    allc, [getattr(self, n) for n in _GATES], dt, caches["gates"])
+                c1_att, c2_att, c3_att = fused_weight_convs(
+                    [a1_12 * c1, a1_23 * c2, a1_31 * c3],
+                    [getattr(self, f"feat_weight_c{i + 1}") for i in range(3)], dt,
+                    caches["weights"])
+                fused12 = a2_12 * c1_att + (1 - a2_12) * c2
+                fused23 = a2_23 * c2_att + (1 - a2_23) * c3
+                fused31 = a2_31 * c3_att + (1 - a2_31) * c1
+                return torch.cat([x_feat, fused12, fused23, fused31], dim=-1)
+
+            x_feat, *feats = self._region("encode", encode, x, *conds, pseudo_target.to(dt))
             allc = torch.cat(feats, dim=-1)
-            a1_12, a2_12, a1_23, a2_23, a1_31, a2_31 = fused_gate_convs(
-                allc, [getattr(self, n) for n in _GATES], dt, self._int8_caches["gates"]
-            )
-            c1, c2, c3 = feats
-            c1_att, c2_att, c3_att = fused_weight_convs(
-                [a1_12 * c1, a1_23 * c2, a1_31 * c3],
-                [getattr(self, f"feat_weight_c{i + 1}") for i in range(3)], dt,
-                self._int8_caches["weights"],
-            )
-            fused12 = a2_12 * c1_att + (1 - a2_12) * c2
-            fused23 = a2_23 * c2_att + (1 - a2_23) * c3
-            fused31 = a2_31 * c3_att + (1 - a2_31) * c1
-            h = torch.cat([x_feat, fused12, fused23, fused31], dim=-1)
+            h = self._region("fuse", fuse3, allc, *feats, x_feat)
 
         hs = [h]
         for kind, name in self._trunk:
@@ -368,20 +440,20 @@ class NCSNppGenerator(nn.Module):
                 h = input_pyramid
                 hs[-1] = h
                 continue
-            if name.startswith("downsample_"):
-                h = m(hs[-1], temb, zemb)
-                hs.append(h)
-            elif kind == "skip":
-                h = m(torch.cat([h, hs.pop()], dim=-1), temb, zemb)
-            elif isinstance(m, AttnBlockpp):
-                h = m(h)
+            if isinstance(m, AttnBlockpp):
+                h = self._region(name, m, h)
                 if name.startswith("down_attn"):
                     hs[-1] = h
-            elif name.startswith("down_"):
-                h = m(hs[-1], temb, zemb)
-                hs.append(h)
+                continue
+            if kind == "skip":
+                x_in = torch.cat([h, hs.pop()], dim=-1)
+            elif name.startswith("down"):  # down_* and downsample_*
+                x_in = hs[-1]
             else:  # middle blocks, upsample blocks
-                h = m(h, temb, zemb)
+                x_in = h
+            h = self._region(name, m, x_in, temb, zemb, seeds.get(name))
+            if name.startswith("down"):
+                hs.append(h)
         assert not hs
 
         h = act(self.final_norm(h))

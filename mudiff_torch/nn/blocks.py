@@ -5,13 +5,17 @@ The port of ``mudiff_tpu/nn/blocks.py:48-120,178-238,241-354,376-435``.
 NHWC; ``dtype`` is the compute dtype, parameters stay float32, GroupNorm
 statistics are always float32 (eps 1e-6, flax's fast variance
 E[x^2] - E[x]^2).  The resblock's factor-2 FIR resampling runs kernels
-K2a/K2b and its 3x3 convs K1 on CUDA tensors.
+K2a/K2b and its 3x3 convs K1 on CUDA tensors.  Its dropout
+(``dropout > 0``, training only) is flax's ``nn.Dropout`` at the same
+point: after the second activation, before ``Conv_1``, as ``where(keep,
+h / (1 - p), 0)``; the keep mask is given, or drawn from a seed
+(``dropout_keep``), so a recomputed forward draws the same one.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -23,6 +27,14 @@ from mudiff_torch.ops import conv_downsample_2d, fir_down2, fir_up2, flash_attn
 
 _SQRT2 = math.sqrt(2.0)
 ATTN_MODES = ("einsum", "bf16", "flash")
+
+
+def dropout_keep(shape, p: float, seed: int, device) -> torch.Tensor:
+    """The keep mask of a dropout at rate ``p``: ``uniform < 1 - p`` (the
+    form of flax's ``bernoulli(rng, 1 - p)``), drawn from a generator on
+    ``device`` seeded with ``seed``."""
+    g = torch.Generator(device).manual_seed(int(seed))
+    return torch.rand(tuple(shape), generator=g, device=device) < 1.0 - p
 
 
 def _num_groups(channels: int) -> int:
@@ -213,11 +225,12 @@ class ResnetBlockBigGANppAdagn(nn.Module):
                  up: bool = False, down: bool = False,
                  fir_kernel: Sequence[int] = (1, 3, 3, 1),
                  skip_rescale: bool = True, init_scale: float = 0.0,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         assert not (up and down)
         out_ch = out_ch or in_ch
         self.up, self.down = up, down
+        self.dropout = dropout
         self.fir_kernel = tuple(fir_kernel)
         self.skip_rescale = skip_rescale
         self.dtype = dtype
@@ -241,7 +254,11 @@ class ResnetBlockBigGANppAdagn(nn.Module):
         return {"fir_up2": 2 * self.up, "fir_down2": 2 * self.down}
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor],
-                zemb: torch.Tensor) -> torch.Tensor:
+                zemb: torch.Tensor,
+                dropout: Optional[Union[int, torch.Tensor]] = None) -> torch.Tensor:
+        """``dropout``, used when the block's rate is above 0: the keep
+        mask (bool, the shape of ``Conv_1``'s input) or the seed it is
+        drawn from; None runs deterministically (flax's ``train=False``)."""
         h = F.silu(self.GroupNorm_0(x, zemb))
         if self.up:
             h = fir_up2(h.contiguous(), self.fir_kernel)
@@ -253,6 +270,12 @@ class ResnetBlockBigGANppAdagn(nn.Module):
         if self.Dense_0 is not None and temb is not None:
             h = h + self.Dense_0(F.silu(temb))[:, None, None, :]
         h = F.silu(self.GroupNorm_1(h, zemb))
+        if self.dropout > 0 and dropout is not None:
+            keep = (dropout if torch.is_tensor(dropout)
+                    else dropout_keep(h.shape, self.dropout, dropout, h.device))
+            # flax divides in the input's dtype by the rate's weak scalar
+            scale = torch.tensor(1.0 - self.dropout, dtype=h.dtype)
+            h = torch.where(keep, h / scale, torch.zeros((), dtype=h.dtype))
         h = self.Conv_1(h)
         if self.Conv_2 is not None:
             x = self.Conv_2(x)

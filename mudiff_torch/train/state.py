@@ -175,12 +175,6 @@ def create_train_state(config: MuDiffConfig, seed: int = 0, steps_per_epoch: int
     on ``device`` (default ``"cuda"``; raises without a card).  Compute
     in bf16 when ``config.use_bf16``, else fp32; parameters fp32.
     ``attn`` is the generators' attention lowering (``"flash"``: K3)."""
-    if config.use_grad_checkpoint:
-        raise NotImplementedError("use_grad_checkpoint (remat) is not ported yet; "
-                                  "ROADMAP.md lists it")
-    if config.dropout > 0:
-        raise NotImplementedError("dropout > 0 in training is not ported yet; "
-                                  "ROADMAP.md lists it")
     device = serving_device(device, "create_train_state")
     dtype = torch.bfloat16 if config.use_bf16 else torch.float32
     gen = torch.Generator().manual_seed(seed)

@@ -32,7 +32,15 @@ gradients.  Two quirks of the JAX package are kept:
   centres, the edge value repeated.
 
 The random draws of each step (``TrainDraws``) come from a
-``torch.Generator`` on the device or are injected.
+``torch.Generator`` on the device or are injected.  With dropout they
+hold one seed per resblock of each generator, drawn before the forward,
+so a rematted region recomputes the masks it drew (``nn/remat.py``).
+
+Remat (``use_grad_checkpoint``): the generators remat their own regions
+(``models/generator.py``); under the ``"blocks"`` policy the G step
+also remats each critic forward (``mudiff_tpu/train/steps.py:172-192``).
+The D step's critic passes never are: R1's grad-of-grad runs on the
+kept activations, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ import torch.nn.functional as F
 
 from mudiff_torch.config import MuDiffConfig
 from mudiff_torch.diffusion.sampling import q_sample_pairs, sample_posterior
+from mudiff_torch.models.generator import resblock_count
+from mudiff_torch.nn import remat
 from mudiff_torch.train.state import TrainState
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -54,7 +64,9 @@ Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 class TrainDraws:
     """The random numbers of one D or G step: ``t`` (B,) int64, the
     pair's two noises (``noise_t`` for x_t, ``noise_tp1`` for x_{t+1}),
-    ``z`` (B, nz) and the two posterior noises, all float32."""
+    ``z`` (B, nz) and the two posterior noises, all float32; with
+    ``config.dropout > 0`` the dropout seeds of G1's and G2's resblocks
+    (``resblock_count`` each, drawn after the rest), else None."""
 
     t: torch.Tensor
     noise_t: torch.Tensor
@@ -62,6 +74,8 @@ class TrainDraws:
     z: torch.Tensor
     noise_post1: torch.Tensor
     noise_post2: torch.Tensor
+    dropout_g1: Optional[Sequence[int]] = None
+    dropout_g2: Optional[Sequence[int]] = None
 
     @classmethod
     def draw(cls, config: MuDiffConfig, real: torch.Tensor,
@@ -72,8 +86,13 @@ class TrainDraws:
             return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
 
         t = torch.randint(0, config.num_timesteps, (b,), generator=generator, device=dev)
-        return cls(t, normal(real.shape), normal(real.shape), normal((b, config.nz)),
-                   normal(real.shape), normal(real.shape))
+        out = cls(t, normal(real.shape), normal(real.shape), normal((b, config.nz)),
+                  normal(real.shape), normal(real.shape))
+        if config.dropout > 0:
+            seeds = torch.randint(0, 2**62, (2, resblock_count(config)), generator=generator,
+                                  device=dev).tolist()
+            out.dropout_g1, out.dropout_g2 = seeds
+        return out
 
 
 def _softplus_mean(x: torch.Tensor) -> torch.Tensor:
@@ -99,6 +118,12 @@ def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
+def critic_remat(config: MuDiffConfig) -> bool:
+    """Whether the G step remats the critic: under the ``"blocks"``
+    policy only (``mudiff_tpu/train/steps.py:182-185``)."""
+    return config.use_grad_checkpoint and config.grad_checkpoint_policy == "blocks"
+
+
 def d_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws,
                      with_r1: bool) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """The D step's gradients (``state.d.parameters()`` order) and losses."""
@@ -117,9 +142,10 @@ def d_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws,
     else:
         penalty = torch.zeros((), dtype=torch.float32, device=real.device)
 
-    with torch.no_grad():
-        x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z)
-        x0_g2 = state.g2(x_tp1, c1, c2, c3, t, draws.z, pseudo_target=x0_g1)
+    with torch.no_grad():  # dropout active, as the JAX D step's train=True
+        x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z, dropout_seeds=draws.dropout_g1)
+        x0_g2 = state.g2(x_tp1, c1, c2, c3, t, draws.z, pseudo_target=x0_g1,
+                         dropout_seeds=draws.dropout_g2)
     pos_g1 = sample_posterior(state.pos_coeff, x0_g1, x_tp1, t, draws.noise_post1)
     pos_g2 = sample_posterior(state.pos_coeff, x0_g2, x_tp1, t, draws.noise_post2)
     logit_f1, _ = state.d(pos_g1, t, x_tp1)
@@ -141,12 +167,17 @@ def g_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws
     c1, c2, c3, real = batch
     t = draws.t
     _, x_tp1 = q_sample_pairs(state.coeff, real, t, draws.noise_t, draws.noise_tp1)
-    x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z)
-    x0_g2 = state.g2(x_tp1, c1, c2, c3, t, draws.z, pseudo_target=x0_g1)
+    x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z, dropout_seeds=draws.dropout_g1)
+    x0_g2 = state.g2(x_tp1, c1, c2, c3, t, draws.z, pseudo_target=x0_g1,
+                     dropout_seeds=draws.dropout_g2)
     pos_g1 = sample_posterior(state.pos_coeff, x0_g1, x_tp1, t, draws.noise_post1)
     pos_g2 = sample_posterior(state.pos_coeff, x0_g2, x_tp1, t, draws.noise_post2)
-    logit_g1, feat_g1 = state.d(pos_g1, t, x_tp1)
-    logit_g2, feat_g2 = state.d(pos_g2, t, x_tp1)
+    if critic_remat(cfg):
+        logit_g1, feat_g1 = remat.checkpointed("critic", state.d, pos_g1, t, x_tp1)
+        logit_g2, feat_g2 = remat.checkpointed("critic", state.d, pos_g2, t, x_tp1)
+    else:
+        logit_g1, feat_g1 = state.d(pos_g1, t, x_tp1)
+        logit_g2, feat_g2 = state.d(pos_g2, t, x_tp1)
 
     hw = pos_g1.shape[1:3]
     att_g1 = bilinear_resize(torch.sigmoid(state.att_conv(feat_g1)), hw)

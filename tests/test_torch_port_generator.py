@@ -147,11 +147,18 @@ def test_two_conditions_and_training_raise():
     cfg = config.MuDiffConfig(**SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         NCSNppGenerator(cfg, num_conditions=2)
-    # training runs without dropout (train/steps.py); dropout > 0 is not ported
+    # dropout > 0 trains: the masks come from the step's seeds, one per
+    # resblock (train/steps.py); without seeds the forward is deterministic
     g = NCSNppGenerator(cfg.replace(dropout=0.3)).train()
-    x = torch.zeros(1, 32, 32, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        g(x, x, x, x, torch.zeros(1, dtype=torch.int64), torch.zeros(1, 16))
+    x = torch.randn(1, 32, 32, 1, generator=torch.Generator().manual_seed(0))
+    t, z = torch.zeros(1, dtype=torch.int64), torch.zeros(1, 16)
+    with torch.no_grad():
+        plain = g(x, x, x, x, t, z)
+        dropped = g(x, x, x, x, t, z, dropout_seeds=range(len(g._resblocks)))
+        assert torch.equal(plain, g(x, x, x, x, t, z))
+    assert not torch.equal(plain, dropped)
+    with pytest.raises(ValueError, match="dropout seeds"):
+        g(x, x, x, x, t, z, dropout_seeds=[0])
 
 
 def test_build_sampler_defaults_to_the_card():

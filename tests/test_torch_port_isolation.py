@@ -1,6 +1,7 @@
 """mudiff_torch stands alone: no JAX, no flax, nothing of mudiff_tpu,
 and none of the packages the card's machine lacks (PIL, matplotlib,
-orbax, optax, yaml).
+orbax, optax, yaml): the YAML runner reads its files with
+``utils/yaml_lite.py``, the demo writes its PNG with ``utils/png.py``.
 
 The port runs on a machine without them, so a stray import would break
 it there while every parity test (which imports both packages) passes
@@ -46,7 +47,12 @@ assert {"mudiff_torch.infer.volume", "mudiff_torch.infer.generators",
         "mudiff_torch.metrics.image_metrics", "mudiff_torch.utils.reports",
         "mudiff_torch.utils.profiling", "mudiff_torch.train.checkpoint",
         "mudiff_torch.train.loop", "mudiff_torch.cli.train", "mudiff_torch.cli.test",
-        "mudiff_torch.infer.slice_test"} <= set(names), names
+        "mudiff_torch.infer.slice_test", "mudiff_torch.utils.yaml_lite",
+        "mudiff_torch.models.registry", "mudiff_torch.nn.remat",
+        "mudiff_torch.metrics.lpips", "mudiff_torch.cli.run",
+        "mudiff_torch.cli.check_pipeline", "mudiff_torch.cli.calibrate_int8",
+        "mudiff_torch.cli.metric_calc", "mudiff_torch.cli.predict_volume_wrapper",
+        "mudiff_torch.demo"} <= set(names), names
 assert not bad, bad
 """
 

@@ -296,9 +296,26 @@ def test_bilinear_resize_matches_jax_image_resize():
 
 
 def test_train_state_refuses_what_is_not_ported():
-    for over in (dict(use_grad_checkpoint=True), dict(dropout=0.1)):
+    # remat and dropout are ported (tests/test_torch_port_remat.py); the
+    # model branches off the recipe are not
+    for over in (dict(resblock_type="ddpm"), dict(embedding_type="fourier")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             create_train_state(config.MuDiffConfig(**{**TINY, **over}), device="cpu")
+
+
+@pytest.mark.parametrize("over", [dict(use_grad_checkpoint=True, grad_checkpoint_policy="hires"),
+                                  dict(dropout=0.1)])
+def test_train_state_takes_remat_and_dropout(over):
+    state = create_train_state(config.MuDiffConfig(**{**TINY, **over}), device="cpu")
+    for g in (state.g1, state.g2):
+        if "dropout" in over:
+            assert g.remat_regions == set()
+            assert all(getattr(g, n).dropout == 0.1 for n in g._resblocks)
+        else:  # hires at 64^2, levels 64 and 32: every block, and the
+            # full-resolution regions; never the input pyramid's convs
+            blocks = {name for kind, name in g._trunk if kind != "pyramid"}
+            assert g.remat_regions == blocks | ({"encode", "fuse"} if g.adaptive
+                                                else {"stems"})
 
 
 def test_create_train_state_defaults_to_the_card():
