@@ -123,6 +123,22 @@ ends the run with a non-zero exit code:
    path's launches, K3 over the volume phase's, K3's backward over the
    training phase's, K4 over the int8 leg's sampler run), then
    ``{"ok": true, "device": ...}``.
+13. (run after 8, in its work directory) the distributed path at world
+   size 1 over NCCL: (a) one D (R1) + G iteration at 8's width (nf=128,
+   batch 2, remat ``hires``, bf16, flash attention) through the mesh's
+   collectives on an explicit one-rank group (a TCPStore on localhost),
+   against the same iteration without a mesh, from the same weights and
+   draws, under ``torch.use_deterministic_algorithms(True,
+   warn_only=True)`` and ``cudnn.deterministic``: every op that warned is
+   printed; with none the synced gradients and the losses must be the
+   plain iteration's bits, else within MESH_FLOOR_FACTOR x the floor two
+   plain runs give; (b) ``python -m torch.distributed.run --standalone
+   --nproc_per_node=1`` (torchrun) of the train CLI on 7's split at its
+   recipe for one epoch, counted inside the launched process (this
+   script's ``--torchrun-train`` mode calls the CLI's ``main``), which
+   must join a one-rank NCCL mesh; its ``content.pt`` restored and held
+   against the file tensor for tensor; ``--resume`` without torchrun for
+   a second epoch, counted; the median iteration beside 7's.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 ``mudiff_torch`` package is not beside the script.  ``--out`` also
@@ -205,6 +221,15 @@ REMAT_LEGS = (("none", None, "einsum"), ("hires", "hires", "einsum"),
               ("hires4", "hires4", "einsum"), ("blocks", "blocks", "einsum"),
               ("none flash", None, "flash"), ("blocks flash", "blocks", "flash"))
 REMAT_ITERS = 3
+# Phase 13: the mesh step is held within this many times the floor that
+# two plain runs of the same iteration give (the bf16 step is not
+# deterministic on the card: ROADMAP.md section 3), and the torchrun CLI
+# run's time limit
+MESH_FLOOR_FACTOR = 2.0
+MESH_CLI_TIMEOUT = 480
+MESH_TIMED = 4  # timed iterations of phase 13's step, each way
+# the meshes whose collective bytes phase 13 works out (it cannot run them)
+MESH_SHAPES = ((2, 1), (4, 1), (8, 1), (1, 2), (1, 4), (2, 2))
 
 # Tolerances, kernel vs plain version on the same inputs.  Both
 # accumulate in fp32; in bf16 they round the same fp32 sum once, so a
@@ -1895,6 +1920,19 @@ def grads_against(tag: str, grads, losses, ref_grads, ref_losses) -> dict:
     whose reference norm is under TINY_GRAD of their group's largest are
     counted, not held), and how many are the same bits."""
     loss_tol, grad_tol = TRAIN_TOL["bf16"]
+    out = grad_distance(tag, grads, losses, ref_grads, ref_losses)
+    if out["max_loss_rel_err"] > loss_tol or out["max_grad_rel_err"] > grad_tol:
+        raise AssertionError(f"remat {tag} vs no remat: loss rel err "
+                             f"{out['max_loss_rel_err']:.3g}, grad rel err "
+                             f"{out['max_grad_rel_err']:.3g} ({out['worst_tensor']}) beyond "
+                             f"{TRAIN_TOL['bf16']}")
+    return out
+
+
+def grad_distance(tag: str, grads, losses, ref_grads, ref_losses) -> dict:
+    """``grads_against``'s readings, unchecked: the largest relative loss
+    error, the largest relative gradient error over the tensors held, the
+    tensors and losses that are the same bits."""
     loss_err = max(abs(losses[k] - v) / max(abs(v), 1e-12) for k, v in ref_losses.items())
     norms = {n: float(g.float().norm()) for n, g in ref_grads.items()}
     top = {}
@@ -1906,16 +1944,351 @@ def grads_against(tag: str, grads, losses, ref_grads, ref_losses) -> dict:
         if norms[n] <= TINY_GRAD * top[n.split(".")[0]]:
             continue
         if not torch_isfinite(g):
-            raise AssertionError(f"remat {tag}: gradient of {n} is not finite")
+            raise AssertionError(f"{tag}: gradient of {n} is not finite")
         errs[n] = float((g.float() - ref_grads[n].float()).norm()) / max(norms[n], 1e-30)
     worst = max(errs, key=errs.get)
-    out = {"max_loss_rel_err": loss_err, "max_grad_rel_err": errs[worst],
-           "worst_tensor": worst, "tensors_held": len(errs),
-           "tensors_bit_identical": same, "tensors": len(grads)}
-    if loss_err > loss_tol or errs[worst] > grad_tol:
-        raise AssertionError(f"remat {tag} vs no remat: loss rel err {loss_err:.3g}, grad rel "
-                             f"err {errs[worst]:.3g} ({worst}) beyond {TRAIN_TOL['bf16']}")
-    return out
+    return {"max_loss_rel_err": loss_err, "max_grad_rel_err": errs[worst],
+            "worst_tensor": worst, "tensors_held": len(errs),
+            "tensors_bit_identical": same, "tensors": len(grads),
+            "losses_bit_identical": sum(losses[k] == v for k, v in ref_losses.items()),
+            "losses": len(ref_losses)}
+
+
+def mesh_step_check(card) -> dict:
+    """Phase 13 (a): one D (R1) + G iteration at RUN_YAML's RUN_EXPERIMENT
+    width (nf=128, batch 2, remat ``hires``, bf16, flash attention)
+    through the mesh's collectives, on an explicit one-rank NCCL group (a
+    TCPStore on localhost; no environment), against the same iteration
+    without a mesh: the synced gradients and the losses.  Three legs from
+    the same weights and draws (plain, mesh, plain again) under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` and
+    ``cudnn.deterministic``; every op that warned is printed, beside what
+    three controls that PyTorch has flagged give (``histc`` forward,
+    ``grid_sample``'s and a bilinear resize's backward through
+    ``autograd.grad``: whether the warnings are caught).  With no
+    warning the mesh leg must be the plain leg's bits; else it must lie
+    within MESH_FLOOR_FACTOR x the floor the two plain legs give.  Then
+    MESH_TIMED iterations of each, plain and mesh in turns; then the plain
+    one twice apart and MESH_TIMED times under PyTorch's defaults, under
+    ``cudnn.deterministic`` alone and under the deterministic algorithms
+    alone (which setting makes its bits repeat): wall medians."""
+    import socket
+    import warnings
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from mudiff_torch.config import _config_from_yaml, load_experiment
+    from mudiff_torch.parallel import init_mesh
+    from mudiff_torch.train import TrainDraws, create_train_state, make_d_step, make_g_step
+    from mudiff_torch.train import checkpoint as ckpt
+    from mudiff_torch.train.steps import bilinear_resize
+
+    doc, exp = load_experiment(RUN_YAML, RUN_EXPERIMENT)
+    cfg = _config_from_yaml(exp["train_args"], doc["data_path"], doc["output_root"],
+                            RUN_EXPERIMENT, exp["target"])
+    shipped = (cfg.num_channels_dae, cfg.batch_size, cfg.use_grad_checkpoint,
+               cfg.grad_checkpoint_policy, cfg.use_bf16, cfg.image_size)
+    if shipped != (RUN_NF, 2, True, "hires", True, IMAGE):
+        raise AssertionError(f"{RUN_YAML}'s {RUN_EXPERIMENT} reads {shipped}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    store = dist.TCPStore("127.0.0.1", port, 1, True, timeout=timedelta(seconds=120))
+    mesh = init_mesh(1, 1, DEVICE, store=store, rank=0, world_size=1)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        backend = dist.get_backend()
+        plain = create_train_state(cfg, seed=SEED, steps_per_epoch=1000, device=DEVICE,
+                                   attn="flash")
+        wgen = torch.Generator(DEVICE).manual_seed(SEED + 90)
+        for m in ("g1", "g2", "d"):
+            randomize_(getattr(plain, m), wgen)
+        start = ckpt.content_payload(plain, 0, 0)  # on the CPU
+        ours = create_train_state(cfg, seed=SEED, steps_per_epoch=1000, device=DEVICE,
+                                  attn="flash", mesh=mesh)
+        bgen = torch.Generator(DEVICE).manual_seed(SEED + 91)
+        shape = (cfg.batch_size, cfg.image_size, cfg.image_size, 1)
+        batch = [torch.randn(shape, generator=bgen, device=DEVICE).tanh() for _ in range(4)]
+        dgen = torch.Generator(DEVICE).manual_seed(SEED + 92)
+        draws = [TrainDraws.draw(cfg, batch[3], dgen, mesh) for _ in range(2)]
+        d_step, g_step = make_d_step(), make_g_step()
+
+        def leg(state):
+            """Losses and synced gradients of one iteration from ``start``."""
+            ckpt.load_payload(state, start)
+            grads, sync = {}, state.sync_grads
+
+            def sync_grads(name, g):
+                out = sync(name, g)
+                names = [f"{name}.{n}" for n, _ in getattr(state, name).named_parameters()]
+                grads.update(zip(names, out))
+                return out
+
+            state.sync_grads = sync_grads
+            try:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                losses = {**d_step(state, batch, draws[0], True),
+                          **g_step(state, batch, draws[1])}
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t
+            finally:
+                del state.sync_grads
+            return {k: float(v) for k, v in losses.items()}, grads, seconds
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+        def flagged(caught):
+            return sorted({str(w.message).splitlines()[0][:240] for w in caught
+                           if "deterministic" in str(w.message)})
+
+        x = torch.randn((2, 8, 8, 1), device=DEVICE, requires_grad=True)
+        grid = torch.rand((2, 8, 8, 2), device=DEVICE) * 2 - 1
+        controls = {
+            "histc": lambda: torch.histc(x.detach(), bins=10),
+            "grid_sample backward": lambda: torch.autograd.grad(
+                F.grid_sample(x.permute(0, 3, 1, 2), grid, align_corners=False).sum(), x),
+            "bilinear resize backward": lambda: torch.autograd.grad(
+                bilinear_resize(x, (64, 64)).square().sum(), x)}
+        control = {}
+        for name, fn in controls.items():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+            control[name] = flagged(caught)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            a_losses, a_grads, a_s = leg(plain)
+            m_losses, m_grads, m_s = leg(ours)
+            b_losses, b_grads, b_s = leg(plain)
+        warned = flagged(caught)
+        vs_plain = grad_distance("mesh step", m_grads, m_losses, a_grads, a_losses)
+        floor = grad_distance("plain step again", b_grads, b_losses, a_grads, a_losses)
+        del a_grads, m_grads, b_grads
+        timed = {"plain": [], "mesh": []}
+        for tag in ("plain", "mesh", "mesh", "plain") * (MESH_TIMED // 2):
+            timed[tag].append(leg(plain if tag == "plain" else ours)[2])
+        # which setting makes the step deterministic: two plain runs apart
+        attribution = {}
+        for tag, algorithms, cudnn_det in (("defaults", False, False),
+                                           ("cudnn.deterministic only", False, True),
+                                           ("deterministic algorithms only", True, False)):
+            torch.use_deterministic_algorithms(algorithms, warn_only=True)
+            torch.backends.cudnn.deterministic = cudnn_det
+            first, second = leg(plain), leg(plain)
+            timed[f"plain, {tag}"] = [first[2], second[2]] + [
+                leg(plain)[2] for _ in range(MESH_TIMED - 2)]
+            attribution[tag] = grad_distance(tag, second[1], second[0], first[1], first[0])
+            del first, second
+        result = {"card": card, "phase": "distributed step (NCCL, world size 1)",
+                  "backend": backend, "nf": cfg.num_channels_dae, "batch": cfg.batch_size,
+                  "remat": cfg.grad_checkpoint_policy, "dtype": "bf16", "attn": "flash",
+                  "warned_ops": warned, "control_warned": control,
+                  "mesh_vs_plain": vs_plain, "plain_vs_plain_floor": floor,
+                  "floor_factor": MESH_FLOOR_FACTOR,
+                  "leg_s": {"plain": a_s, "mesh": m_s, "plain again": b_s},
+                  "plain_vs_plain_by_setting": attribution, "iteration_s": timed,
+                  "iteration_s_median": {k: sorted(v)[len(v) // 2] for k, v in timed.items()}}
+        print(json.dumps(result), flush=True)
+        bits = (vs_plain["tensors_bit_identical"] == vs_plain["tensors"]
+                and vs_plain["losses_bit_identical"] == vs_plain["losses"])
+        if not warned and not bits:
+            raise AssertionError("no op warned, yet the mesh step's bits differ from the "
+                                 f"plain step's: {vs_plain}")
+        for key in ("max_loss_rel_err", "max_grad_rel_err"):
+            if vs_plain[key] > MESH_FLOOR_FACTOR * floor[key]:
+                raise AssertionError(f"mesh step vs plain step: {key} {vs_plain[key]:.3g} "
+                                     f"beyond {MESH_FLOOR_FACTOR} x the plain floor "
+                                     f"{floor[key]:.3g}")
+        return result
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
+        mesh.close()
+
+
+def torchrun_train(out_path: str, argv) -> int:
+    """The process ``mesh_cli_check`` launches with torchrun: the train
+    CLI's ``main`` (what ``-m mudiff_torch.cli.train`` runs) with the
+    launch counts zeroed before and read after, under the smoke's cuDNN
+    settings (phase 7's), and the mesh it joined; all into ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from mudiff_torch import ops
+    from mudiff_torch.cli import train as train_cli
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    joined = {}
+    init_mesh = train_cli.init_mesh
+
+    def recording_init_mesh(*a, **k):
+        mesh = init_mesh(*a, **k)
+        joined.update(backend=dist.get_backend(), rank=mesh.rank, world=mesh.world,
+                      dp=mesh.dp, fsdp=mesh.fsdp, device=str(mesh.device))
+        return mesh
+
+    train_cli.init_mesh = recording_init_mesh
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    with open(out_path, "w") as f:
+        json.dump({"launches": ops.launch_counts(), "r1_steps": res["r1_steps"],
+                   "timings": res["timings"], "exp_dir": res["exp_dir"], "mesh": joined,
+                   "torchrun_env": {k: os.environ.get(k) for k in
+                                    ("RANK", "LOCAL_RANK", "WORLD_SIZE")}}, f)
+    return 0
+
+
+def mesh_cli_check(cfg, card, work: str, loop: dict) -> dict:
+    """Phase 13 (b): ``torchrun --standalone --nproc_per_node=1`` of the
+    train CLI on phase 7's split at its recipe (``work``), one epoch,
+    counted in the launched process (``torchrun_train``); its
+    ``content.pt`` restored and held against the file tensor for tensor;
+    then ``--resume`` without torchrun for a second epoch, counted; the
+    median iteration beside phase 7's."""
+    import numpy as np
+    import torch
+
+    from mudiff_torch.cli import train as train_cli
+    from mudiff_torch.train import checkpoint as ckpt
+    from mudiff_torch.train import create_train_state
+
+    struct = loop_structure(cfg)
+    npy, out = os.path.join(work, "npy"), os.path.join(work, "results")
+    argv = recipe_argv(cfg) + [
+        "--input_path", npy, "--output_path", out, "--exp", "smoke_mesh",
+        "--batch_size", str(TRAIN_BATCH), "--lazy_reg", str(LOOP_LAZY), "--log_every", "1",
+        "--save_ckpt_every", "1", "--attn", "flash", "--seed", str(SEED)]
+    steps, val_batches = 20 // TRAIN_BATCH, math.ceil(10 / TRAIN_BATCH)
+    report = os.path.join(work, "torchrun_train.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", os.path.abspath(__file__), "--torchrun-train", report,
+           *argv, "--num_epoch", "1"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MESH_CLI_TIMEOUT,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    torchrun_s = time.perf_counter() - t
+    if proc.returncode:
+        raise AssertionError(f"torchrun train exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(report) as f:
+        first = json.load(f)
+    on_card = DEVICE == "cuda"
+    if first["mesh"] != {"backend": "nccl" if on_card else "gloo", "rank": 0, "world": 1,
+                         "dp": 1, "fsdp": 1, "device": "cuda:0" if on_card else "cpu"}:
+        raise AssertionError(f"torchrun train joined {first['mesh']}")
+    want_r1 = [s for s in range(steps) if s % LOOP_LAZY == 0]
+    want = combine([(len(want_r1), struct["r1"]), (steps - len(want_r1), struct["no_r1"]),
+                    (1 + val_batches, struct["sample"])])
+    if first["launches"] != want or first["r1_steps"] != want_r1:
+        raise AssertionError(f"torchrun train launches {first['launches']} != structure's "
+                             f"{want}; R1 on {first['r1_steps']}")
+    exp = first["exp_dir"]
+    tcfg = train_cli.parse_config(argv + ["--num_epoch", "2"], mode="train")[0]
+    state = create_train_state(tcfg, seed=SEED + 93, steps_per_epoch=steps, device=DEVICE,
+                               attn="flash")
+    _, epoch, global_step = ckpt.restore_content(exp, state)
+    payload_equal(ckpt.content_payload(state, epoch, global_step), ckpt.load_content(exp))
+    if (epoch, global_step, state.step) != (0, steps, steps):
+        raise AssertionError(f"torchrun content.pt at epoch {epoch}, step {global_step}")
+    del state
+
+    log = []
+    resumed, resume_counts, resume_s = counted(
+        log, lambda: train_cli.main(argv + ["--num_epoch", "2", "--resume"]))
+    want_r1 = [s for s in range(steps, 2 * steps) if s % LOOP_LAZY == 0]
+    want = combine([(len(want_r1), struct["r1"]), (steps - len(want_r1), struct["no_r1"]),
+                    (1 + val_batches, struct["sample"])])
+    if resume_counts != want or resumed["r1_steps"] != want_r1:
+        raise AssertionError(f"resume launches {resume_counts} != structure's {want}; "
+                             f"R1 on {resumed['r1_steps']}")
+    with open(resumed["history"]) as f:
+        if [h["epoch"] for h in json.load(f)] != [0, 1]:
+            raise AssertionError("the resumed history lacks an epoch")
+    median = float(np.median(first["timings"]["iteration_s"]))
+    result = {"card": card, "phase": "torchrun train CLI (NCCL, world size 1) + resume",
+              "nf": cfg.num_channels_dae, "batch": TRAIN_BATCH, "mesh": first["mesh"],
+              "torchrun_env": first["torchrun_env"], "torchrun_s": torchrun_s,
+              "resume_s": resume_s, "launches": first["launches"],
+              "resume_launches": resume_counts,
+              "r1_steps": first["r1_steps"] + resumed["r1_steps"],
+              "iteration_s_median": median,
+              "iteration_s_median_resume": float(np.median(
+                  resumed["timings"]["iteration_s"])),
+              "phase7_iteration_s_median": loop["iteration_s_median"],
+              "first_iteration_s": first["timings"]["iteration_s"][0]}
+    print(json.dumps(result), flush=True)
+    return result
+
+
+def mesh_traffic(cfg) -> dict:
+    """Bytes each rank sends in one D (R1) + G iteration on each mesh of
+    MESH_SHAPES, worked out from the parameters (fp32) and ``param_spec``
+    for ring collectives; not measured (one card).  ``grads``: the fsdp
+    reduce-scatter ((F-1)/F of the sharded gradients) and all-reduce of
+    the replicated ones (2 (F-1)/F), then the data all-reduce (2 (D-1)/D
+    of what a rank then holds); ``params``: the fsdp all-gathers ((F-1)/F
+    of a module's sharded bytes for G1, G2 and D before the D step, D
+    before the G step, and G1 and G2 after it when EMA is on);
+    ``stddev``: one critic pass's feature-map gather over the data group
+    (bf16), of which an iteration makes about ten (five forwards, their
+    backward's reduce-scatters, R1's)."""
+    import torch
+
+    from mudiff_torch.models import DiscriminatorLarge, NCSNppGenerator
+    from mudiff_torch.parallel import param_spec
+
+    with torch.device("meta"):
+        mods = {"g1": NCSNppGenerator(cfg, device="meta"),
+                "g2": NCSNppGenerator(cfg, adaptive=True, device="meta"),
+                "d": DiscriminatorLarge(ngf=cfg.ngf, t_emb_dim=cfg.t_emb_dim, device="meta")}
+    counts = {n: sum(p.numel() for p in m.parameters()) for n, m in mods.items()}
+    total = sum(counts.values())
+    rows = []
+    for dp, fsdp in MESH_SHAPES:
+        sharded = {n: sum(p.numel() for p in m.parameters()
+                          if param_spec(p.shape, fsdp) is not None) for n, m in mods.items()}
+        shard_b, repl_b = 4 * sum(sharded.values()), 4 * (total - sum(sharded.values()))
+        part = (fsdp - 1) / fsdp
+        gathered = (sharded["g1"] + sharded["g2"] + 2 * sharded["d"]
+                    + (sharded["g1"] + sharded["g2"] if cfg.use_ema else 0))
+        rows.append({"dp": dp, "fsdp": fsdp, "sharded_params": sum(sharded.values()),
+                     "grad_reduce_scatter_bytes": part * shard_b + 2 * part * repl_b,
+                     "grad_all_reduce_bytes": 2 * (dp - 1) / dp * (shard_b / fsdp + repl_b),
+                     "param_all_gather_bytes": part * 4 * gathered,
+                     "stddev_gather_bytes_per_pass": (dp - 1) / dp * cfg.batch_size * dp
+                     * (cfg.image_size // 64) ** 2 * 8 * cfg.ngf * 2})
+    return {"nf": cfg.num_channels_dae, "params": counts, "batch_per_rank": cfg.batch_size,
+            "use_ema": cfg.use_ema, "per_iteration": rows}
+
+
+def distributed_phase(cfg, card, work: str, loop: dict) -> dict:
+    """Phase 13: the distributed path on the card at world size 1, and
+    the collective bytes of larger meshes worked out at nf=64 (phase 7's
+    recipe at batch 2) and at RUN_YAML's nf=128."""
+    from mudiff_torch.config import _config_from_yaml, load_experiment
+
+    t = time.perf_counter()
+    step = mesh_step_check(card)
+    cli = mesh_cli_check(cfg, card, work, loop)
+    doc, exp = load_experiment(RUN_YAML, RUN_EXPERIMENT)
+    run_cfg = _config_from_yaml(exp["train_args"], doc["data_path"], doc["output_root"],
+                                RUN_EXPERIMENT, exp["target"])
+    traffic = [mesh_traffic(cfg.replace(batch_size=TRAIN_BATCH)), mesh_traffic(run_cfg)]
+    seconds = time.perf_counter() - t
+    print(json.dumps({"card": card, "phase": "distributed", "seconds": seconds,
+                      "collective_bytes_worked_out": traffic}), flush=True)
+    return {"step": step, "cli": cli, "seconds": seconds, "traffic": traffic}
 
 
 def remat_table(cfg, card, log) -> dict:
@@ -2269,6 +2642,9 @@ def profile_call(fn) -> dict:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--torchrun-train"]:  # phase 13's process under torchrun
+        return torchrun_train(argv[1], argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write per-shape rows and the nvcc log here")
     args = parser.parse_args(argv)
@@ -2358,6 +2734,8 @@ def main(argv=None) -> int:
         loop = loop_phase(cfg, card, work)
         # -- the shipped experiment through the YAML runner at nf=128, remat ----
         runp = run_phase(card, work)
+        # -- the distributed path at world size 1 over NCCL ---------------------
+        distp = distributed_phase(cfg, card, work, loop)
 
     counts = shape_counts({"launches": log, "volume_launches": volume["log"],
                            "train_launches": train["log"], "int8_launches": int8["log"],
@@ -2481,6 +2859,7 @@ def main(argv=None) -> int:
                        "volume": {k: v for k, v in volume.items()
                                   if k not in ("log", "int8_log")},
                        "training": {k: v for k, v in train.items() if k != "log"},
+                       "distributed": distp,
                        "nvcc": {k: v["log"] for k, v in built.items()}}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -16,9 +16,10 @@ accepted in every mode, ``train`` included, in place of the
 ``MUDIFF_ATTN`` variable, which the port does not read (it has no
 environment knobs, ROADMAP.md).  It resolves as the flag, else ``einsum``
 for ``train`` (what JAX training uses) and ``bf16`` for the serving
-modes.  Flags with no meaning on one card (the legacy DDP flags,
-``--gpu_chose``) are accepted and ignored; ``--dp`` / ``--fsdp`` above 1
-are refused by the training loop.
+modes.  Flags with no meaning here (the legacy DDP flags, whose place
+torchrun's environment takes, and ``--gpu_chose``) are accepted and
+ignored; ``--dp`` / ``--fsdp`` shape the mesh of a run launched by
+torchrun (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -110,7 +111,7 @@ def build_parser(mode: str = "test_volume") -> argparse.ArgumentParser:
     p.add_argument("--lambda_adv", type=float, default=1.0)
     p.add_argument("--pretrained_dir", type=str, default=None)
 
-    # legacy DDP flags — accepted, ignored (one card)
+    # legacy DDP flags — accepted, ignored (torchrun's environment)
     p.add_argument("--num_proc_node", type=int, default=1)
     p.add_argument("--num_process_per_node", type=int, default=1)
     p.add_argument("--node_rank", type=int, default=0)
@@ -118,10 +119,9 @@ def build_parser(mode: str = "test_volume") -> argparse.ArgumentParser:
     p.add_argument("--master_address", type=str, default="127.0.0.1")
     p.add_argument("--port_num", type=str, default="6021")
 
-    # parallelism of the JAX package: one card, so dp <= 1 and fsdp 1
-    # (the training loop refuses more)
+    # the (data, fsdp) mesh of a torchrun launch (parallel/mesh.py)
     p.add_argument("--dp", type=int, default=-1,
-                   help="data-parallel axis size (-1 = all devices)")
+                   help="data-parallel axis size (-1 = all processes / fsdp)")
     p.add_argument("--fsdp", type=int, default=1,
                    help="parameter-sharding axis size")
 

@@ -12,8 +12,8 @@ card's facts in place of the TPU's:
 * a CUDA device is visible, and ``nvcc`` is found for the kernels'
   first-use build (``ops/_build.py``);
 * the YAML: experiments present, names unique, ``train_args`` complete,
-  ``test_args`` present; ``dp`` and ``fsdp`` fit one card (multi-device
-  training is ROADMAP.md queue 1, item 6);
+  ``test_args`` present (whether ``dp`` x ``fsdp`` fits the world is
+  checked at run time, by ``parallel.init_mesh``);
 * LPIPS: ``metrics/lpips.py``'s weight loaders and ``metric_calc``'s
   flags for them are in place;
 * the flag surface: every ``python -m mudiff_torch...`` command of the
@@ -42,7 +42,7 @@ README_SECTION = "### Quick start of the port"
 
 def check_experiments(doc: Any, ok) -> List[str]:
     """The YAML's structure (``mudiff_tpu/cli/check_pipeline.py:61-81``,
-    the same messages) and that each experiment fits one card."""
+    the same messages)."""
     errors: List[str] = []
     exps = (doc.get("experiments") if isinstance(doc, dict) else None) or []
     if not exps:
@@ -62,10 +62,6 @@ def check_experiments(doc: Any, ok) -> List[str]:
             ok(f"experiment {name}: train_args complete")
         if "test_args" not in e:
             errors.append(f"{name}: no test_args")
-        dp, fsdp = ta.get("dp", -1), ta.get("fsdp", 1)
-        if (dp is not None and dp > 1) or fsdp != 1:
-            errors.append(f"{name}: dp={dp}, fsdp={fsdp} needs more than one card; "
-                          "multi-device training is not ported (ROADMAP.md queue 1, item 6)")
     return errors
 
 

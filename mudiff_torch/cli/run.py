@@ -4,6 +4,7 @@ experiments/run.py).
 
     python -m mudiff_torch.cli.run -c experiments/brats.yaml -e synthesize_T1CE \\
         [--train-only | --test-only] [--attn flash]
+    torchrun --nproc_per_node=N -m mudiff_torch.cli.run -c ... -e ...
 
 The YAML has top-level ``data_path`` / ``output_root`` and a list of
 ``experiments`` ({exp_name, target, train_args, test_args}); it is read
@@ -17,6 +18,11 @@ and the device names where the JAX package records ``jax_version`` and
 ``generated_samples/``) and writes ``test_metrics.json``, all in one
 process.  ``--attn`` is the attention lowering (else ``einsum`` for
 training and ``bf16`` for the test), in place of ``MUDIFF_ATTN``.
+
+Under torchrun every process joins the mesh of the experiment's
+``train_args`` ``dp`` x ``fsdp`` (``parallel.init_mesh``) and trains on
+it; the lead rank alone writes ``session_metadata.json`` and runs the
+test.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from mudiff_torch.config import _config_from_yaml, load_experiment
+from mudiff_torch.parallel import init_mesh
 
 
 def _session_metadata(device: torch.device) -> Dict[str, Any]:
@@ -60,9 +67,11 @@ def run_experiment(cfg_path: str, exp_name: str, train_only: bool = False,
                    test_only: bool = False, verbose: bool = True, *, device=None,
                    attn: Optional[str] = None) -> Dict[str, Any]:
     """Train and / or test one experiment of the YAML at ``cfg_path`` on
-    ``device`` (default the card).  Returns ``exp_dir``, and ``train``
-    (``train``'s artifacts) and ``test`` (``sample_and_test``'s result with
-    its ``metrics``) for the phases that ran."""
+    ``device`` (default the card; under torchrun each rank's, on the
+    mesh of the experiment's ``dp`` / ``fsdp``).  Returns ``exp_dir``, and
+    ``train`` (``train``'s artifacts) and ``test`` (``sample_and_test``'s
+    result with its ``metrics``, on the lead rank) for the phases that
+    ran."""
     from mudiff_torch.sampler import serving_device
 
     device = serving_device(device, "run_experiment")
@@ -70,24 +79,30 @@ def run_experiment(cfg_path: str, exp_name: str, train_only: bool = False,
     data_path = doc.get("data_path", "/data/BRATS")
     output_root = doc.get("output_root", "./results")
     target = exp.get("target", "T1CE")
-
+    train_cfg = _config_from_yaml(exp.get("train_args"), data_path, output_root, exp_name,
+                                  target)
+    mesh = init_mesh(train_cfg.dp, train_cfg.fsdp, device)
+    device = mesh.device if mesh is not None else device
+    lead = mesh is None or mesh.lead
     out_dir = os.path.join(output_root, exp_name, target)
     os.makedirs(out_dir, exist_ok=True)
-    meta = _session_metadata(device)
-    meta.update({"experiment": exp_name, "target": target,
-                 "config_file": os.path.abspath(cfg_path)})
-    with open(os.path.join(out_dir, "session_metadata.json"), "w") as f:
-        json.dump(meta, f, indent=2)
-
     results: Dict[str, Any] = {"exp_dir": out_dir}
-    if not test_only:
-        from mudiff_torch.train.loop import train
+    try:
+        if lead:
+            meta = _session_metadata(device)
+            meta.update({"experiment": exp_name, "target": target,
+                         "config_file": os.path.abspath(cfg_path)})
+            with open(os.path.join(out_dir, "session_metadata.json"), "w") as f:
+                json.dump(meta, f, indent=2)
+        if not test_only:
+            from mudiff_torch.train.loop import train
 
-        train_cfg = _config_from_yaml(exp.get("train_args"), data_path, output_root,
-                                      exp_name, target)
-        results["train"] = train(train_cfg, verbose=verbose, device=device,
-                                 attn=attn or "einsum")
-    if not train_only:
+            results["train"] = train(train_cfg, verbose=verbose, device=device,
+                                     attn=attn or "einsum", mesh=mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+    if not train_only and lead:
         from mudiff_torch.infer import sample_and_test
         from mudiff_torch.metrics import evaluate_pair_dirs
 

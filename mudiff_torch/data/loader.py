@@ -4,8 +4,13 @@ The port of ``mudiff_tpu/data/loader.py`` for one card.  The index order
 is the JAX loader's: ``np.random.RandomState(seed + epoch).permutation``
 when shuffling (else ``arange``), cut into batches, each sorted
 (``np.sort``) before the gather; ``drop_last`` drops a partial tail,
-``pad_last`` keeps it padded with its last slice.  Multi-process
-sharding is not ported: one process reads the whole split.
+``pad_last`` keeps it padded with its last slice.  Across processes
+(``process_index`` / ``process_count``: a rank's data index and the data
+size of the mesh) ``batch_size`` is the global batch, and each process
+takes the strided subset ``idx[p::P]`` of the epoch's order, cut to the
+common floor length so that every process runs the same number of
+steps, and gathers its ``batch_size / P`` rows of each batch
+(``mudiff_tpu/data/loader.py:82-109``).
 
 A background thread gathers each batch straight into freshly allocated
 pinned host tensors (the native gather writes into them) and keeps up to
@@ -58,9 +63,17 @@ class DeviceLoader:
         pad_last: bool = False,
         device=None,
         prefetch: int = 2,
+        process_index: int = 0,
+        process_count: int = 1,
     ) -> None:
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{process_count} processes")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.process_index, self.process_count = process_index, process_count
+        # the rows this process contributes to every global batch
+        self.local_batch_size = batch_size // process_count
         self.shuffle = shuffle
         self.seed = seed
         # pad_last keeps the tail batch, padded to batch_size by repeating
@@ -70,22 +83,29 @@ class DeviceLoader:
         self.device = serving_device(device, "DeviceLoader")
         self.prefetch = max(1, prefetch)
 
+    def _shard_len(self) -> int:
+        return len(self.dataset) // self.process_count
+
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self._shard_len()
         if self.drop_last:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+            return n // self.local_batch_size
+        return -(-n // self.local_batch_size)
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
+        """This process's dataset indices of ``epoch``, in order."""
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.RandomState(self.seed + epoch).permutation(n)
-        return np.arange(n)
+            idx = np.random.RandomState(self.seed + epoch).permutation(n)
+        else:
+            idx = np.arange(n)
+        return idx[self.process_index::self.process_count][:self._shard_len()]
 
     def batch_indices(self, epoch: int):
-        """The sorted dataset indices of each batch of ``epoch``, in order."""
+        """The sorted dataset indices of this process's rows of each batch
+        of ``epoch``, in order."""
         idx = self.epoch_indices(epoch)
-        bs = self.batch_size
+        bs = self.local_batch_size
         for b in range(len(self)):
             sel = idx[b * bs:(b + 1) * bs]
             if self.pad_last and len(sel) < bs:

@@ -12,6 +12,11 @@ package.  ``DownConvBlock``'s two FIR downsamples run kernel K2a
 package runs XLA's ``upfirdn2d``; K2a is twice differentiable, so R1's
 double backward runs the kernels too.  ``DiscriminatorSmall`` and
 ``DiscriminatorImgLarge`` are not ported (ROADMAP.md).
+
+On a mesh (``mesh``, set by ``TrainState``) the minibatch-stddev feature
+is the global batch's, as under the JAX package's SPMD critic
+(``critic.py:91-95``): the feature map is gathered over the data group.
+So every forward is a collective, made by every rank in the same order.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 
 from mudiff_torch.nn.layers import Dense, StyleConv2d, get_timestep_embedding
 from mudiff_torch.ops import fir_down2
+from mudiff_torch.parallel.mesh import Mesh, gather_rows, rows_of
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -79,21 +85,25 @@ class DownConvBlock(nn.Module):
         return ((out + skip).to(torch.float32) / _SQRT2).to(out.dtype)
 
 
-def minibatch_stddev(out: torch.Tensor, stddev_group: int = 4) -> torch.Tensor:
+def minibatch_stddev(out: torch.Tensor, stddev_group: int = 4,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     """StyleGAN2 minibatch-stddev feature with the reference's strided
     grouping (discriminator.py:246-254): the batch is viewed as
     (group, B // group, ...) with the group index slowest, the biased
     variance taken across groups, averaged over H, W, C per residual
     index, and tiled back group-major.  A batch that ``stddev_group``
-    does not divide takes the largest divisor (``critic.py:83-105``)."""
-    b, h, w, c = out.shape
+    does not divide takes the largest divisor (``critic.py:83-105``).
+    With a ``mesh`` the batch is the global one (``gather_rows``), and
+    this rank's rows of the feature are kept."""
+    whole = gather_rows(out, mesh)
+    b, h, w, c = whole.shape
     group = min(b, stddev_group)
     while b % group:
         group -= 1
-    x5 = out.reshape(group, b // group, h, w, c).to(torch.float32)
+    x5 = whole.reshape(group, b // group, h, w, c).to(torch.float32)
     var = ((x5 - x5.mean(dim=0)) ** 2).mean(dim=0)
-    s = torch.sqrt(var + 1e-8).mean(dim=(1, 2, 3)).repeat(group)
-    s = s[:, None, None, None] * torch.ones((b, h, w, 1), dtype=torch.float32,
+    s = torch.sqrt(var + 1e-8).mean(dim=(1, 2, 3)).repeat(group)[rows_of(b, mesh)]
+    s = s[:, None, None, None] * torch.ones((out.shape[0], h, w, 1), dtype=torch.float32,
                                             device=out.device)
     return torch.cat([out, s.to(out.dtype)], dim=-1)
 
@@ -120,6 +130,7 @@ class DiscriminatorLarge(nn.Module):
                                   fir_kernel=fir_kernel, **kw))
         self.final_conv = StyleConv2d(ngf * 8 + 1, ngf * 8, **kw)
         self.end_linear = Dense(ngf * 8, 1, **kw)
+        self.mesh: Optional[Mesh] = None
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -145,6 +156,6 @@ class DiscriminatorLarge(nn.Module):
         h = self.conv4(h, t_embed)
         h = self.conv5(h, t_embed)
         h = self.conv6(h, t_embed)
-        h = _lrelu(self.final_conv(minibatch_stddev(h)))
+        h = _lrelu(self.final_conv(minibatch_stddev(h, mesh=self.mesh)))
         out = self.end_linear(h.sum(dim=(1, 2)))
         return out.reshape(-1).to(torch.float32), mid_feat

@@ -37,7 +37,9 @@ policy: G1's fused stems, G2's adaptive encode and its gate fusion
 Dropout (``config.dropout > 0``) runs in training mode when the forward
 is given ``dropout_seeds``, one per resblock in forward order
 (``resblock_count``), as the training steps do; otherwise the forward is
-deterministic, as flax's ``train=False``.
+deterministic, as flax's ``train=False``.  On a mesh ``dropout_rows`` =
+(global batch, this rank's first row) draws each mask for the global
+batch (``nn/blocks.py`` ``dropout_keep``).
 """
 
 from __future__ import annotations
@@ -358,13 +360,16 @@ class NCSNppGenerator(nn.Module):
     def forward(self, x: torch.Tensor, cond1: torch.Tensor, cond2: torch.Tensor,
                 cond3: torch.Tensor, time_cond: torch.Tensor, z: torch.Tensor,
                 pseudo_target: Optional[torch.Tensor] = None,
-                dropout_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+                dropout_seeds: Optional[Sequence[int]] = None,
+                dropout_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         seeds = {}
         if self.training and dropout_seeds is not None and self.config.dropout > 0:
             if len(dropout_seeds) != len(self._resblocks):
                 raise ValueError(f"{len(dropout_seeds)} dropout seeds for "
                                  f"{len(self._resblocks)} resblocks")
-            seeds = dict(zip(self._resblocks, (int(s) for s in dropout_seeds)))
+            rows = tuple(dropout_rows) if dropout_rows is not None else ()
+            seeds = dict(zip(self._resblocks,
+                             ((int(s), *rows) if rows else int(s) for s in dropout_seeds)))
         # The scope covers the whole forward; in training mode it is off
         # (int8 is inference only: no straight-through estimator).
         with int8_scope(self.int8_serving(), min_ch=self.int8_min_ch,

@@ -9,13 +9,15 @@ K2a/K2b and its 3x3 convs K1 on CUDA tensors.  Its dropout
 (``dropout > 0``, training only) is flax's ``nn.Dropout`` at the same
 point: after the second activation, before ``Conv_1``, as ``where(keep,
 h / (1 - p), 0)``; the keep mask is given, or drawn from a seed
-(``dropout_keep``), so a recomputed forward draws the same one.
+(``dropout_keep``), so a recomputed forward draws the same one.  On a
+mesh the seed comes with the global batch and this rank's first row: the
+mask is drawn for the global batch and the rank's rows are kept.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -29,12 +31,19 @@ _SQRT2 = math.sqrt(2.0)
 ATTN_MODES = ("einsum", "bf16", "flash")
 
 
-def dropout_keep(shape, p: float, seed: int, device) -> torch.Tensor:
+def dropout_keep(shape, p: float, seed: int, device,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The keep mask of a dropout at rate ``p``: ``uniform < 1 - p`` (the
     form of flax's ``bernoulli(rng, 1 - p)``), drawn from a generator on
-    ``device`` seeded with ``seed``."""
+    ``device`` seeded with ``seed``.  With ``rows`` = (global batch, first
+    row) it is drawn for the global batch and ``shape[0]`` rows from the
+    first are kept."""
     g = torch.Generator(device).manual_seed(int(seed))
-    return torch.rand(tuple(shape), generator=g, device=device) < 1.0 - p
+    if rows is None:
+        return torch.rand(tuple(shape), generator=g, device=device) < 1.0 - p
+    n, start = rows
+    whole = torch.rand((n, *shape[1:]), generator=g, device=device) < 1.0 - p
+    return whole[start:start + shape[0]]
 
 
 def _num_groups(channels: int) -> int:
@@ -255,10 +264,12 @@ class ResnetBlockBigGANppAdagn(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor],
                 zemb: torch.Tensor,
-                dropout: Optional[Union[int, torch.Tensor]] = None) -> torch.Tensor:
+                dropout: Optional[Union[int, Tuple[int, int, int], torch.Tensor]] = None
+                ) -> torch.Tensor:
         """``dropout``, used when the block's rate is above 0: the keep
-        mask (bool, the shape of ``Conv_1``'s input) or the seed it is
-        drawn from; None runs deterministically (flax's ``train=False``)."""
+        mask (bool, the shape of ``Conv_1``'s input), the seed it is drawn
+        from, or ``(seed, global batch, first row)``; None runs
+        deterministically (flax's ``train=False``)."""
         h = F.silu(self.GroupNorm_0(x, zemb))
         if self.up:
             h = fir_up2(h.contiguous(), self.fir_kernel)
@@ -271,8 +282,12 @@ class ResnetBlockBigGANppAdagn(nn.Module):
             h = h + self.Dense_0(F.silu(temb))[:, None, None, :]
         h = F.silu(self.GroupNorm_1(h, zemb))
         if self.dropout > 0 and dropout is not None:
-            keep = (dropout if torch.is_tensor(dropout)
-                    else dropout_keep(h.shape, self.dropout, dropout, h.device))
+            if torch.is_tensor(dropout):
+                keep = dropout
+            elif isinstance(dropout, tuple):
+                keep = dropout_keep(h.shape, self.dropout, dropout[0], h.device, dropout[1:])
+            else:
+                keep = dropout_keep(h.shape, self.dropout, dropout, h.device)
             # flax divides in the input's dtype by the rate's weak scalar
             scale = torch.tensor(1.0 - self.dropout, dtype=h.dtype)
             h = torch.where(keep, h / scale, torch.zeros((), dtype=h.dtype))

@@ -36,6 +36,20 @@ The random draws of each step (``TrainDraws``) come from a
 hold one seed per resblock of each generator, drawn before the forward,
 so a rematted region recomputes the masks it drew (``nn/remat.py``).
 
+On a mesh (``state.mesh``, ``parallel/mesh.py``) each rank runs its
+rows of the global batch.  The draws are made for the global batch on
+every rank from the same generator and sliced to the rank's rows
+(``TrainDraws.draw``), so any world size draws what one process draws on
+the whole batch, as ``jax.random`` does over a sharded array.  The
+losses are per-rank means; between ``*_loss_and_grads`` and the update
+the gradients go through ``TrainState.sync_grads`` (the mean over the
+data group, the reduce-scatter over the fsdp group), and the losses the
+steps return are data-group means.  The critic's stddev feature couples
+the ranks' rows; its gather's backward sums each rank's gradient of its
+rows over the group, so the synced gradient is the global batch's, R1's
+``grad_x`` included (every rank's logits reach it, as ``jax.grad`` of the
+global sum does, ``steps.py:96-109``).
+
 Remat (``use_grad_checkpoint``): the generators remat their own regions
 (``models/generator.py``); under the ``"blocks"`` policy the G step
 also remats each critic forward (``mudiff_tpu/train/steps.py:172-192``).
@@ -55,6 +69,7 @@ from mudiff_torch.config import MuDiffConfig
 from mudiff_torch.diffusion.sampling import q_sample_pairs, sample_posterior
 from mudiff_torch.models.generator import resblock_count
 from mudiff_torch.nn import remat
+from mudiff_torch.parallel.mesh import Mesh, average_scalars, rows_of
 from mudiff_torch.train.state import TrainState
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -66,7 +81,8 @@ class TrainDraws:
     pair's two noises (``noise_t`` for x_t, ``noise_tp1`` for x_{t+1}),
     ``z`` (B, nz) and the two posterior noises, all float32; with
     ``config.dropout > 0`` the dropout seeds of G1's and G2's resblocks
-    (``resblock_count`` each, drawn after the rest), else None."""
+    (``resblock_count`` each, drawn after the rest), else None; on a mesh
+    ``dropout_rows`` = (global batch, this rank's first row)."""
 
     t: torch.Tensor
     noise_t: torch.Tensor
@@ -76,22 +92,32 @@ class TrainDraws:
     noise_post2: torch.Tensor
     dropout_g1: Optional[Sequence[int]] = None
     dropout_g2: Optional[Sequence[int]] = None
+    dropout_rows: Optional[Tuple[int, int]] = None
 
     @classmethod
     def draw(cls, config: MuDiffConfig, real: torch.Tensor,
-             generator: Optional[torch.Generator] = None) -> "TrainDraws":
-        b, dev = real.shape[0], real.device
+             generator: Optional[torch.Generator] = None,
+             mesh: Optional[Mesh] = None) -> "TrainDraws":
+        """The draws of a step on ``real``, this rank's rows; with a
+        ``mesh`` drawn for the global batch (``real``'s rows x dp)."""
+        dev = real.device
+        n = real.shape[0] * (mesh.dp if mesh is not None else 1)
+        rows = rows_of(n, mesh)
+        shape = (n, *real.shape[1:])
 
         def normal(shape):
-            return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+            return torch.randn(shape, generator=generator, device=dev,
+                               dtype=torch.float32)[rows]
 
-        t = torch.randint(0, config.num_timesteps, (b,), generator=generator, device=dev)
-        out = cls(t, normal(real.shape), normal(real.shape), normal((b, config.nz)),
-                  normal(real.shape), normal(real.shape))
+        t = torch.randint(0, config.num_timesteps, (n,), generator=generator, device=dev)[rows]
+        out = cls(t, normal(shape), normal(shape), normal((n, config.nz)), normal(shape),
+                  normal(shape))
         if config.dropout > 0:
             seeds = torch.randint(0, 2**62, (2, resblock_count(config)), generator=generator,
                                   device=dev).tolist()
             out.dropout_g1, out.dropout_g2 = seeds
+            if mesh is not None:
+                out.dropout_rows = (n, rows.start)
         return out
 
 
@@ -128,6 +154,7 @@ def d_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws,
                      with_r1: bool) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """The D step's gradients (``state.d.parameters()`` order) and losses."""
     cfg = state.config
+    state.materialize()
     c1, c2, c3, real = batch
     b, t = real.shape[0], draws.t
     x_t, x_tp1 = q_sample_pairs(state.coeff, real, t, draws.noise_t, draws.noise_tp1)
@@ -143,9 +170,10 @@ def d_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws,
         penalty = torch.zeros((), dtype=torch.float32, device=real.device)
 
     with torch.no_grad():  # dropout active, as the JAX D step's train=True
-        x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z, dropout_seeds=draws.dropout_g1)
+        x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z, dropout_seeds=draws.dropout_g1,
+                         dropout_rows=draws.dropout_rows)
         x0_g2 = state.g2(x_tp1, c1, c2, c3, t, draws.z, pseudo_target=x0_g1,
-                         dropout_seeds=draws.dropout_g2)
+                         dropout_seeds=draws.dropout_g2, dropout_rows=draws.dropout_rows)
     pos_g1 = sample_posterior(state.pos_coeff, x0_g1, x_tp1, t, draws.noise_post1)
     pos_g2 = sample_posterior(state.pos_coeff, x0_g2, x_tp1, t, draws.noise_post2)
     logit_f1, _ = state.d(pos_g1, t, x_tp1)
@@ -164,12 +192,14 @@ def g_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws
     """The G step's gradients (G1's and G2's, ``parameters()`` order) and
     losses.  D's parameters get no gradient."""
     cfg = state.config
+    state.materialize()
     c1, c2, c3, real = batch
     t = draws.t
     _, x_tp1 = q_sample_pairs(state.coeff, real, t, draws.noise_t, draws.noise_tp1)
-    x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z, dropout_seeds=draws.dropout_g1)
+    x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z, dropout_seeds=draws.dropout_g1,
+                     dropout_rows=draws.dropout_rows)
     x0_g2 = state.g2(x_tp1, c1, c2, c3, t, draws.z, pseudo_target=x0_g1,
-                     dropout_seeds=draws.dropout_g2)
+                     dropout_seeds=draws.dropout_g2, dropout_rows=draws.dropout_rows)
     pos_g1 = sample_posterior(state.pos_coeff, x0_g1, x_tp1, t, draws.noise_post1)
     pos_g2 = sample_posterior(state.pos_coeff, x0_g2, x_tp1, t, draws.noise_post2)
     if critic_remat(cfg):
@@ -196,25 +226,26 @@ def g_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws
 
 def make_d_step() -> Callable:
     """``d_step(state, batch, draws, with_r1) -> losses``: gradients,
-    then Adam on D."""
+    synced over the mesh, then Adam on D."""
 
     def d_step(state: TrainState, batch: Batch, draws: TrainDraws,
                with_r1: bool) -> Dict[str, torch.Tensor]:
         grads, aux = d_loss_and_grads(state, batch, draws, with_r1)
-        state.apply_d_updates(grads)
-        return aux
+        state.apply_d_updates(state.sync_grads("d", grads))
+        return average_scalars(aux, state.mesh)
 
     return d_step
 
 
 def make_g_step() -> Callable:
-    """``g_step(state, batch, draws) -> losses``: gradients, then Adam on
-    G1 and G2 and the EMA."""
+    """``g_step(state, batch, draws) -> losses``: gradients, synced over
+    the mesh, then Adam on G1 and G2 and the EMA."""
 
     def g_step(state: TrainState, batch: Batch, draws: TrainDraws) -> Dict[str, torch.Tensor]:
         (grads_g1, grads_g2), aux = g_loss_and_grads(state, batch, draws)
-        state.apply_g_updates(grads_g1, grads_g2)
-        return aux
+        state.apply_g_updates(state.sync_grads("g1", grads_g1),
+                              state.sync_grads("g2", grads_g2))
+        return average_scalars(aux, state.mesh)
 
     return g_step
 
@@ -226,7 +257,8 @@ def make_train_step(config: MuDiffConfig) -> Callable:
     updates ``state`` in place and returns the losses.  ``with_r1``
     defaults to the lazy schedule: R1 when ``lazy_reg`` is None or
     ``state.step % lazy_reg == 0``.  ``draws`` is a (D step, G step) pair
-    of ``TrainDraws``; without it both are drawn from ``generator``.
+    of ``TrainDraws``; without it both are drawn from ``generator`` (for
+    the global batch on a mesh).
     """
     d_step, g_step = make_d_step(), make_g_step()
 
@@ -238,8 +270,8 @@ def make_train_step(config: MuDiffConfig) -> Callable:
             with_r1 = config.lazy_reg is None or state.step % config.lazy_reg == 0
         if draws is None:
             real = batch[3]
-            draws = (TrainDraws.draw(config, real, generator),
-                     TrainDraws.draw(config, real, generator))
+            draws = (TrainDraws.draw(config, real, generator, state.mesh),
+                     TrainDraws.draw(config, real, generator, state.mesh))
         d_aux = d_step(state, batch, draws[0], with_r1)
         g_aux = g_step(state, batch, draws[1])
         return {**d_aux, **g_aux}

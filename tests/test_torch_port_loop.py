@@ -262,8 +262,9 @@ def test_sigterm_saves_content_and_resume_continues(data_root, tmp_path, monkeyp
 
 
 def test_train_refuses_what_is_not_ported(data_root, tmp_path):
+    # a mesh of more than one process is torchrun's (parallel.init_mesh)
     for over in (dict(dp=2), dict(fsdp=2)):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(ValueError, match="processes"):
             loop.train(_port_config(data_root, tmp_path, **over), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
