@@ -116,7 +116,8 @@ ends the run with a non-zero exit code:
    torch.profiler (device time by kernel, the device's idle share), then
    one batch-8 sample of the volume phase's sampler (--attn flash) too;
 12. every kernel must have launched in 3, 4 or 6, each in 7, K1, K2 and
-   K4 in 8's CLI runs and K1-K3 in its remat table; the kernels summed
+   K4 in 8's CLI runs, K1-K3 in its remat table and each in 14; the
+   kernels summed
    over the volume phase's, the training phase's, the int8 leg's, the
    train-loop phase's and phase 8's two runs' launches, then the
    ``kernels`` JSON line (K1 and K2 over the main
@@ -139,6 +140,30 @@ ends the run with a non-zero exit code:
    must join a one-rank NCCL mesh; its ``content.pt`` restored and held
    against the file tensor for tensor; ``--resume`` without torchrun for
    a second epoch, counted; the median iteration beside 7's.
+14. (run after 13, in its work directory) the model branches off the
+   recipe at ``brats_recipe(num_channels_dae=64, image_size=256)``'s
+   width, seeded non-trivial weights: B1 (one-AdaGN resblocks, the
+   output_skip and input_skip pyramids, ``sum``; K1, K2a, K2b, K3, K4)
+   and B2 (ddpm resblocks, residual pyramids; K1, K3, K4, and the plain
+   FIR convs) each serve three counted batch-4 requests (--attn flash),
+   the sample against its plain versions (at the main path's bf16-score
+   attention within ``BRANCH_TOL``'s, with flash within
+   ``BF16_VOLUME_TOL``), one counted W8A8 dynamic request at bf16-score
+   attention (K4's fused path only, its sample within ``BRANCH_TOL``'s,
+   and with K4 alone through its kernel the plain versions' bits),
+   best-of-2 and one profiled request, one counted bf16 training
+   iteration (R1) and one fp32 D (R1) + G iteration against the plain
+   versions (``TRAIN_TOL["fp32"]``); B3
+   (ddpm, ``fir=False``, Fourier, three-channel images, two conditions)
+   runs G1 + G2 at t = 1, 2, 3 against the plain versions, and prints
+   the t = 0 embedding's non-finite lanes (NaN by the reference's
+   construction, not a failure); ``DiscriminatorSmall`` (ngf 64, 32²,
+   three channels, batch 64) and ``DiscriminatorImgLarge`` (ngf 64, 256²,
+   batch 4) one forward and R1's gradient of a gradient against the
+   plain versions; the train CLI for one epoch with B1's flags on 7's
+   split and the test CLI (int8) on its checkpoint.  Every run counted
+   against the structure; the ``branch_phase_kernels`` line sums each
+   kernel over the phase's launches.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 ``mudiff_torch`` package is not beside the script.  ``--out`` also
@@ -273,8 +298,16 @@ FLASH_BWD_TOL = {"bf16": 2e-2, "fp32": 1e-4}
 # largest of their module are counted, not held: their exact gradient is
 # 0 or nearly (the key projection's bias, which softmax ignores; the
 # critic's last bias under R1 alone), so their relative error is noise.
+# Their norms are read on the fp32 plain run: in bf16 the key bias's
+# gradient is rounding noise that can pass 1e-6.  A gradient that bf16
+# rounding alone moves a distance d from the fp32 plain run's is held to
+# the larger of the tolerance and SPREAD * d: two bf16 runs each d from it
+# may lie 2d apart with no fault in either, and the kernels' run lay up to
+# 2.3 d from it where the plain run lay d (B1's stem convs, d = 0.02-0.03;
+# d reaches 0.08-0.11 on B1's drift seeds, volume_drift.py --branch).
 TRAIN_TOL = {"fp32": (1e-4, 1e-3), "bf16": (2e-2, 5e-2)}
 TINY_GRAD = 1e-6
+SPREAD = 4.0
 
 # Published dense peaks of the card (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 CUDA-core FLOP/s, device-memory bytes/s; and the int8
@@ -524,7 +557,9 @@ def fir_rows(shapes, peaks, card):
     checks, times, bound.  ``shapes`` maps (name, x shape, dtype, offset)
     to its launch counts.  Each row names the kernel's path ("vector":
     16-byte vectors along C, "scalar": one channel a thread); a path's
-    shape must take the vector path, an extra shape the scalar one.
+    shape must take the vector path when C x itemsize is a multiple of 16
+    (the one-channel pyramids take the scalar one), an extra shape the
+    scalar one.
     Besides the warm time ``ms``, ``ms_cold`` times single launches
     after a write of FLUSH_BYTES (``ms_cold_clean`` after a read of
     them), and ``bound_share`` is the bound over ``ms_cold``: K2 moves
@@ -551,7 +586,7 @@ def fir_rows(shapes, peaks, card):
         for tag, dt, tol in (("bf16", torch.bfloat16, TOL["bf16"]),
                              ("fp32", torch.float32, FIR_TOL_FP32)):
             xd = offset_view(x.to(dt), offset)
-            if vector_path(xd) == extra:
+            if vector_path(xd) != (not extra and c * xd.element_size() % 16 == 0):
                 raise AssertionError(f"{name} {xshape} {tag} offset {offset}: "
                                      f"vector path {vector_path(xd)}")
             errs[tag] = check_close(f"{name} {xshape} {tag} offset {offset}", kern(xd, k),
@@ -1050,7 +1085,8 @@ SOURCES = {
 # phase, K3's backward, which only training runs, and K4, which only the
 # int8 leg runs (its sampler run).
 PATHS = ("launches", "volume_launches", "train_launches", "int8_launches",
-         "int8_volume_launches", "loop_launches", "run_launches", "remat_launches")
+         "int8_volume_launches", "loop_launches", "run_launches", "remat_launches",
+         "branch_launches")
 COUNTED_IN = {"flash_attn": "volume_launches", "flash_attn_bwd_dkv": "train_launches",
               "flash_attn_bwd_dq": "train_launches", "int8_conv3x3": "int8_launches"}
 
@@ -1068,6 +1104,12 @@ def shape_counts(logs: dict) -> dict:
 
 def run_of(path: str) -> str:
     """The run whose launches the count ``path`` holds."""
+    if path == "branch_launches":
+        return (f"phase 14's runs of the model branches at nf={NF}: B1 and B2 each "
+                f"{REQUESTS} requests and one W8A8 request of batch {BATCH} (attn flash), "
+                f"one training iteration (batch {TRAIN_BATCH}, R1); B3's G1 + G2 at "
+                f"t = {list(B3_STEPS)}; the two critics' forward and R1; the train CLI "
+                f"(1 epoch) and the test CLI with B1's flags")
     if path == "run_launches":
         return (f"phase 8's CLI runs on {RUN_YAML}'s {RUN_EXPERIMENT} (nf=128): run "
                 f"({RUN_EPOCHS} epoch at batch 2, remat hires, then the test at batch 8), "
@@ -1417,8 +1459,57 @@ def r1_grads(state, batch, draws):
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
-def compare_iteration(tag: str, state, batch, draws) -> dict:
-    """Kernels vs plain versions on one iteration, held to TRAIN_TOL[tag]."""
+KERNEL_MODULES = ("conv3x3", "fir", "flash_attn", "int8_conv")
+
+
+@contextlib.contextmanager
+def kernels_only(*names):
+    """Every wrapper whose kernel is not in ``names`` runs its plain
+    version, on CUDA tensors too."""
+    saved = {m: m.use_kernel for m in (sys.modules[f"mudiff_torch.ops.{k}"]
+                                        for k in KERNEL_MODULES)}
+    for m, real in saved.items():
+        m.use_kernel = (lambda name, key, *tensors, real=real:
+                        real(name, key, *tensors) and name in names)
+    try:
+        yield
+    finally:
+        for m, real in saved.items():
+            m.use_kernel = real
+
+
+def grad_errors(grads: dict, plain: dict, exact: dict | None = None):
+    """||g - g_plain|| / ||g_plain|| of each named gradient whose norm in
+    ``exact`` (the same iteration in fp32 through the plain versions; by
+    default ``plain`` itself) is above TINY_GRAD of the largest of its
+    group (the name's first part: d, g1, g2, R1 alone); returns (those
+    errors, the names below)."""
+    ref = plain if exact is None else exact
+    norms = {n: float(g.float().norm()) for n, g in ref.items()}
+    top = {}
+    for n, v in norms.items():
+        top[n.split(".")[0]] = max(top.get(n.split(".")[0], 0.0), v)
+    errors, tiny = {}, []
+    for n, g in grads.items():
+        if norms[n] <= TINY_GRAD * top[n.split(".")[0]]:
+            tiny.append(n)
+            continue
+        if not bool(torch_isfinite(g)):
+            raise AssertionError(f"the gradient of {n} is not finite")
+        errors[n] = rel_err(g, plain[n])
+    return errors, tiny
+
+
+def rel_err(g, ref) -> float:
+    """||g - ref|| / ||ref||, in fp32."""
+    return float((g.float() - ref.float()).norm()) / max(float(ref.float().norm()), 1e-30)
+
+
+def compare_iteration(tag: str, state, batch, draws, exact: dict) -> dict:
+    """Kernels vs plain versions on one iteration, held to TRAIN_TOL[tag]
+    on the tensors ``grad_errors`` holds, ``exact`` being the fp32 plain
+    run's gradients; a gradient whose plain run lies a distance d from
+    ``exact`` is held to the larger of the tolerance and SPREAD * d."""
     loss_tol, grad_tol = TRAIN_TOL[tag]
     losses, grads, counts = iteration_grads(state, batch, draws, plain=False)
     p_losses, p_grads, p_counts = iteration_grads(state, batch, draws, plain=True)
@@ -1427,33 +1518,49 @@ def compare_iteration(tag: str, state, batch, draws) -> dict:
         raise AssertionError(f"{tag} iteration: launches {counts} with kernels (want {want}), "
                              f"{p_counts} with plain versions forced")
     loss_err = {k: abs(losses[k] - v) / max(abs(v), 1e-12) for k, v in p_losses.items()}
-    norms = {n: float(g.float().norm()) for n, g in p_grads.items()}
-    top = {}  # the largest norm of each group: d, g1, g2, R1 alone
-    for n, v in norms.items():
-        top[n.split(".")[0]] = max(top.get(n.split(".")[0], 0.0), v)
-    grad_err, tiny = {}, []
-    for n, g in grads.items():
-        if norms[n] <= TINY_GRAD * top[n.split(".")[0]]:
-            tiny.append(n)
-            continue
-        if not bool(torch_isfinite(g)):
-            raise AssertionError(f"{tag} iteration: gradient of {n} is not finite")
-        grad_err[n] = float((g.float() - p_grads[n].float()).norm()) / max(norms[n], 1e-30)
-    worst = max(grad_err, key=grad_err.get)
+    grad_err, tiny = grad_errors(grads, p_grads, exact)
+    rounding = {n: rel_err(p_grads[n], exact[n]) for n in grad_err}
+    limit = {n: max(grad_tol, SPREAD * d) for n, d in rounding.items()}
+    share = {n: e / limit[n] for n, e in grad_err.items()}
+    worst, nearest = max(grad_err, key=grad_err.get), max(share, key=share.get)
+    kernels_far = {n: rel_err(grads[n], exact[n]) for n in grad_err}
     result = {"tag": tag, "losses_kernels": losses, "losses_plain": p_losses,
               "max_loss_rel_err": max(loss_err.values()),
               "max_grad_rel_err": grad_err[worst], "worst_tensor": worst,
+              "nearest_its_limit": {"tensor": nearest, "err": grad_err[nearest],
+                                    "limit": limit[nearest], "share": share[nearest]},
               "tensors_held": len(grad_err), "tensors_below_tiny": len(tiny),
+              "tensors_above_tol": sum(v > grad_tol for v in limit.values()),
               "median_grad_rel_err": sorted(grad_err.values())[len(grad_err) // 2],
-              "worst_five": sorted(grad_err.items(), key=lambda kv: -kv[1])[:5],
+              "worst_five": [(n, grad_err[n], limit[n]) for n in
+                             sorted(grad_err, key=grad_err.get, reverse=True)[:5]],
               "below_tiny": tiny,
-              "tolerance": {"loss": loss_tol, "grad": grad_tol}}
+              "plain_vs_fp32_plain": {"max": max(rounding.values()),
+                                      "median": sorted(rounding.values())[len(rounding) // 2],
+                                      f"at_{worst}": rounding[worst]},
+              "kernels_vs_fp32_plain": {"max": max(kernels_far.values()),
+                                        "median": sorted(kernels_far.values())[
+                                            len(kernels_far) // 2],
+                                        f"at_{worst}": kernels_far[worst]},
+              "tolerance": {"loss": loss_tol, "grad": grad_tol, "spread": SPREAD}}
     print(json.dumps({"train_kernels_vs_plain": result}), flush=True)
-    if result["max_loss_rel_err"] > loss_tol or grad_err[worst] > grad_tol:
+    if result["max_loss_rel_err"] > loss_tol or share[nearest] > 1.0:
         raise AssertionError(f"{tag} iteration, kernels vs plain: loss rel err "
-                             f"{result['max_loss_rel_err']:.3g}, grad rel err "
-                             f"{grad_err[worst]:.3g} ({worst}) beyond {TRAIN_TOL[tag]}")
+                             f"{result['max_loss_rel_err']:.3g} (limit {loss_tol}), grad rel err "
+                             f"{grad_err[nearest]:.3g} ({nearest}) beyond its limit "
+                             f"{limit[nearest]:.3g}")
     return result
+
+
+def fp32_copy(cfg, state):
+    """A fp32 train state (``--no_bf16``) holding ``state``'s weights."""
+    from mudiff_torch.train import create_train_state
+
+    state32 = create_train_state(cfg.replace(use_bf16=False), seed=SEED, device=DEVICE,
+                                 attn="flash")
+    for m in ("g1", "g2", "d", "att_conv"):
+        getattr(state32, m).load_state_dict(getattr(state, m).state_dict())
+    return state32
 
 
 def torch_isfinite(t) -> bool:
@@ -1535,13 +1642,11 @@ def training_phase(cfg, card) -> dict:
     # -- one iteration, kernels vs plain versions, bf16 and fp32 (TF32 off)
     dgen = torch.Generator(DEVICE).manual_seed(SEED + 53)
     draws = tuple(TrainDraws.draw(cfg, batch[3], dgen) for _ in range(2))
-    compared = [compare_iteration("bf16", state, batch, draws)]
-    state32 = create_train_state(cfg.replace(use_bf16=False), seed=SEED, device=DEVICE,
-                                 attn="flash")
-    for m in ("g1", "g2", "d", "att_conv"):
-        getattr(state32, m).load_state_dict(getattr(state, m).state_dict())
-    compared.append(compare_iteration("fp32", state32, batch, draws))
-    del state32
+    state32 = fp32_copy(cfg, state)
+    exact = iteration_grads(state32, batch, draws, plain=True)[1]
+    compared = [compare_iteration("bf16", state, batch, draws, exact),
+                compare_iteration("fp32", state32, batch, draws, exact)]
+    del state32, exact
 
     # -- times, memory, profile
     d_step, g_step = make_d_step(), make_g_step()
@@ -1934,18 +2039,8 @@ def grad_distance(tag: str, grads, losses, ref_grads, ref_losses) -> dict:
     error, the largest relative gradient error over the tensors held, the
     tensors and losses that are the same bits."""
     loss_err = max(abs(losses[k] - v) / max(abs(v), 1e-12) for k, v in ref_losses.items())
-    norms = {n: float(g.float().norm()) for n, g in ref_grads.items()}
-    top = {}
-    for n, v in norms.items():
-        top[n.split(".")[0]] = max(top.get(n.split(".")[0], 0.0), v)
-    errs, same = {}, 0
-    for n, g in grads.items():
-        same += int(bool((g == ref_grads[n]).all()))
-        if norms[n] <= TINY_GRAD * top[n.split(".")[0]]:
-            continue
-        if not torch_isfinite(g):
-            raise AssertionError(f"{tag}: gradient of {n} is not finite")
-        errs[n] = float((g.float() - ref_grads[n].float()).norm()) / max(norms[n], 1e-30)
+    same = sum(int(bool((g == ref_grads[n]).all())) for n, g in grads.items())
+    errs, _ = grad_errors(grads, ref_grads)
     worst = max(errs, key=errs.get)
     return {"max_loss_rel_err": loss_err, "max_grad_rel_err": errs[worst],
             "worst_tensor": worst, "tensors_held": len(errs),
@@ -2578,6 +2673,321 @@ def _run_phase(card, work: str, t_phase: float) -> dict:
 
 # Device kernels of a request, grouped by the first group one of whose
 # marks occurs in the kernel's lower-cased name.
+# Phase 14: the generator branches off the recipe, at the recipe's serving
+# width (brats_recipe(nf=64), 256², ch_mult (1, 2, 4), two resblocks a
+# level), with seeded non-trivial weights.  B1 and B2 serve and train; B3
+# (three-channel images, two conditions: no sampler takes it) runs G1 + G2
+# forwards; the train and test CLIs run with B1's flags on phase 7's split.
+BRANCHES = {
+    "B1 pyramid": dict(resblock_type="biggan_oneadagn", progressive="output_skip",
+                       progressive_input="input_skip", progressive_combine="sum"),
+    "B2 ddpm": dict(resblock_type="ddpm", progressive="residual",
+                    progressive_input="residual"),
+}
+B3 = dict(resblock_type="ddpm", fir=False, embedding_type="fourier", num_channels=3)
+B3_STEPS = (1, 2, 3)  # the Fourier embedding reads log(t): NaN at t = 0
+# The branch samples through the kernels vs the plain versions (max abs in
+# [-1, 1] units), each limit 1.5x the largest sound reading of
+# ``volume_drift.py --branch`` over seeds 0-2 and below its smallest
+# reading of a K1 fault that drops tap (0, 0) of the Cout = 1 convs
+# (NVIDIA H100 80GB HBM3, 700.00 W).  Sound, then that fault: bf16 (bf16
+# scores) B1 0.050-0.072 vs 0.658, B2 0.033-0.037 vs 0.512; W8A8 dynamic
+# B1 0.165-0.321 vs 0.638, B2 0.098-0.135 vs 0.538.  Scaling those
+# convs' weights by 1.08 reads 0.078-0.114 (B1) and 0.066-0.081 (B2) in
+# bf16, within B1's sound spread: no limit separates it there.  All of
+# the drift is K1's (K1 alone reads the same, K4 alone 0.0), and it is
+# not the pyramid's: K1 at B1's three Cout = 1 (output pyramid) convs
+# alone reads 0.049-0.073 (int8 0.163-0.282), K1 at every other conv
+# 0.046-0.064 (int8 0.157-0.229).  K4 is held apart: the int8 sample with
+# K4 alone through its kernel must be the plain versions' bits.
+BRANCH_TOL = {"B1 pyramid": {"sample": 0.108, "int8": 0.482},
+              "B2 ddpm": {"sample": 0.056, "int8": 0.202}}
+# (class, image side, channels, batch): DDGAN's CIFAR-10 critic and the
+# image-only large critic at the recipe's image, both at ngf CRITIC_NGF
+CRITICS = (("DiscriminatorSmall", 32, 3, 64), ("DiscriminatorImgLarge", IMAGE, 1, BATCH))
+CRITIC_NGF = 64
+
+
+def branch_phase(card, work: str) -> dict:
+    """Phase 14: B1 and B2 through ``build_sampler`` (three counted batch-4
+    requests, --attn flash; the sample against the plain versions at the
+    main path's bf16-score attention within BRANCH_TOL and with flash
+    within BF16_VOLUME_TOL; one counted W8A8 dynamic request at bf16-score
+    attention within BRANCH_TOL, and with K4 alone the plain bits; one
+    profiled request) and through training (one counted bf16
+    ``make_train_step`` iteration with R1, then one D (R1) + G iteration
+    against the plain versions in bf16 and in fp32, ``compare_iteration``);
+    B3's G1 + G2 forwards at t in B3_STEPS against the plain versions; the two
+    critics' forward and R1 gradient-of-gradient (K2a, K2b) against the
+    plain versions; the train CLI for one epoch with B1's flags on phase
+    7's split (``work``) and the test CLI on its checkpoint.  Every run is
+    counted against the module structure (``branch_launches``)."""
+    import torch
+
+    from mudiff_torch import brats_recipe, build_sampler, models, ops
+    from mudiff_torch.cli import test as test_cli
+    from mudiff_torch.cli import train as train_cli
+    from mudiff_torch.cli.args import parse_config
+    from mudiff_torch.train import TrainDraws, create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    base = brats_recipe(num_channels_dae=NF, image_size=IMAGE)
+    zero = dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
+    log, launches, report = [], {}, {}
+
+    def count(tag, fn, want):
+        out, got, seconds = counted(log, fn)
+        launches[tag] = got
+        if got != {**zero, **want}:
+            raise AssertionError(f"{tag}: launches {got} != structure's {want}")
+        return out, seconds
+
+    cgen = torch.Generator(DEVICE).manual_seed(SEED + 80)
+    requests = [conditions(cgen, DEVICE) for _ in range(REQUESTS)]
+    zgen = torch.Generator(DEVICE).manual_seed(SEED + 81)
+    x_init = torch.randn((BATCH, IMAGE, IMAGE, 1), generator=zgen, device=DEVICE)
+    noise = [(torch.randn((BATCH, base.nz), generator=zgen, device=DEVICE),
+              torch.randn((BATCH, IMAGE, IMAGE, 1), generator=zgen, device=DEVICE))
+             for _ in range(base.num_timesteps)]
+
+    for name, over in BRANCHES.items():
+        cfg = base.replace(**over)
+        t0 = time.perf_counter()
+        wgen = torch.Generator(DEVICE).manual_seed(SEED + 82)
+        s = build_sampler(cfg, device=DEVICE, attn="flash",
+                          generator=torch.Generator().manual_seed(SEED))
+        randomize_(s.g1, wgen)
+        randomize_(s.g2, wgen)
+
+        def with_weights(other):
+            other.g1.load_state_dict(s.g1.state_dict())
+            other.g2.load_state_dict(s.g2.state_dict())
+            return other
+
+        ngen = torch.Generator(DEVICE).manual_seed(SEED + 83)
+
+        def serve():
+            outs, secs = [], []
+            for conds in requests:
+                t = time.perf_counter()
+                outs.append(s(*conds, generator=ngen))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            return outs, secs
+
+        (outs, request_s), _ = count(f"{name} requests", serve,
+                                     combine([(REQUESTS, s.kernel_launches_per_sample())]))
+        for out in outs:
+            if out.shape != (BATCH, IMAGE, IMAGE, 1) or not torch_isfinite(out) \
+                    or float(out.std()) < 1e-2:
+                raise AssertionError(f"{name}: bad sample {tuple(out.shape)}")
+        diffs = {}
+        plain_attn = with_weights(build_sampler(cfg, device=DEVICE, attn="bf16"))
+        _, diffs["bf16_attn"], _ = sample_vs_plain(f"{name} bf16", plain_attn, requests[0],
+                                                   x_init, noise, BRANCH_TOL[name]["sample"])
+        del plain_attn
+        _, diffs["flash_attn"], _ = sample_vs_plain(f"{name} flash", s, requests[0], x_init,
+                                                    noise, BF16_VOLUME_TOL)
+        # W8A8 at the int8 leg's attention (bf16 scores), as it holds the recipe
+        s8 = with_weights(build_sampler(cfg.replace(use_int8=True), device=DEVICE))
+        (out8,), _ = count(f"{name} int8 request",
+                           lambda: [s8(*requests[0], generator=ngen)],
+                           s8.kernel_launches_per_sample())
+        paths = dict(ops.int8_conv3x3.path_launches)
+        if paths != {"wgmma": launches[f"{name} int8 request"]["int8_conv3x3"], "general": 0} \
+                or not paths["wgmma"]:
+            raise AssertionError(f"{name} int8: K4 by path {paths}")
+        if not torch_isfinite(out8) or float(out8.std()) < 1e-2:
+            raise AssertionError(f"{name}: bad int8 sample")
+        _, diffs["int8_dynamic"], _ = sample_vs_plain(f"{name} int8", s8, requests[0], x_init,
+                                                      noise, BRANCH_TOL[name]["int8"])
+        with ops.plain_kernels():
+            ref8 = s8(*requests[0], x_init=x_init, noise=noise)
+        with kernels_only("int8_conv3x3"):
+            diffs["int8_k4_alone"] = float((s8(*requests[0], x_init=x_init, noise=noise)
+                                            - ref8).abs().max())
+        if diffs["int8_k4_alone"] != 0.0:
+            raise AssertionError(f"{name} int8 sample, K4 alone vs plain: "
+                                 f"{diffs['int8_k4_alone']}")
+        del s8, ref8
+        best = best_of(lambda: s(*requests[0], generator=ngen), 2)
+        prof = profile_request(s, requests[0], ngen)
+        prof["idle_share_of_best_request"] = 1.0 - prof["device_busy_ms"] / (1e3 * best)
+        del s
+
+        state = create_train_state(cfg, seed=SEED, device=DEVICE, attn="flash")
+        tgen = torch.Generator(DEVICE).manual_seed(SEED + 84)
+        for module in (state.g1, state.g2, state.d):
+            randomize_(module, tgen)
+        batch = [torch.randn((TRAIN_BATCH, IMAGE, IMAGE, 1), generator=tgen,
+                             device=DEVICE).tanh() for _ in range(4)]
+        metrics, iteration_s = count(
+            f"{name} training iteration",
+            lambda: make_train_step(cfg)(state, batch, generator=tgen, with_r1=True),
+            state.kernel_launches_per_iteration(with_r1=True))
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError(f"{name}: a training loss is not finite: {metrics}")
+        draws = tuple(TrainDraws.draw(cfg, batch[3], tgen) for _ in range(2))
+        state32 = fp32_copy(cfg, state)
+        exact = iteration_grads(state32, batch, draws, plain=True)[1]
+        compared = {"bf16": compare_iteration("bf16", state, batch, draws, exact)}
+        del state
+        compared["fp32"] = compare_iteration("fp32", state32, batch, draws, exact)
+        del state32, exact
+        report[name] = {
+            "config": over, "request_s": request_s, "best_request_s": best,
+            "slices_per_s": BATCH / best, "device_busy_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"],
+            "idle_share_of_best_request": prof["idle_share_of_best_request"],
+            "device_ms_by_group": prof["device_ms_by_group"],
+            "sample_kernel_vs_plain_max_abs": diffs,
+            "tolerance": {**BRANCH_TOL[name], "flash": BF16_VOLUME_TOL},
+            "training_iteration_s": iteration_s,
+            "training_vs_plain": {tag: {k: r[k] for k in (
+                "max_loss_rel_err", "max_grad_rel_err", "worst_tensor", "nearest_its_limit",
+                "tensors_above_tol", "kernels_vs_fp32_plain", "plain_vs_fp32_plain")}
+                for tag, r in compared.items()},
+            "seconds": time.perf_counter() - t0}
+        print(json.dumps({"card": card, "phase": "model branches", name: report[name]}),
+              flush=True)
+
+    # -- B3: three-channel images, two conditions, Fourier, naive resampling
+    t0 = time.perf_counter()
+    cfg3 = base.replace(**B3)
+    wgen = torch.Generator(DEVICE).manual_seed(SEED + 85)
+    g1, g2 = (models.NCSNppGenerator(cfg3, adaptive=a, num_conditions=2, attn="flash",
+                                     dtype=torch.bfloat16, device=DEVICE).eval()
+              for a in (False, True))
+    randomize_(g1, wgen)
+    randomize_(g2, wgen)
+    shape3 = (BATCH, IMAGE, IMAGE, cfg3.num_channels)
+    x3, c1, c2 = (torch.randn(shape3, generator=wgen, device=DEVICE).tanh() for _ in range(3))
+    z3 = torch.randn((BATCH, cfg3.nz), generator=wgen, device=DEVICE)
+
+    def forwards(steps):
+        outs = []
+        for step in steps:
+            t = torch.full((BATCH,), step, dtype=torch.int64, device=DEVICE)
+            x0_1 = g1(x3, c1, c2, None, t, z3)
+            outs += [x0_1, g2(x3, c1, c2, None, t, z3, x0_1)]
+        return outs
+
+    with torch.no_grad():
+        got, _ = count("B3 forwards", lambda: forwards(B3_STEPS),
+                       combine([(len(B3_STEPS), g1.kernel_launches_per_forward()),
+                                (len(B3_STEPS), g2.kernel_launches_per_forward())]))
+        with ops.plain_kernels():
+            want = forwards(B3_STEPS)
+        at_t0 = g1(x3, c1, c2, None, torch.zeros((BATCH,), dtype=torch.int64, device=DEVICE),
+                   z3)
+        emb_t0 = g1.fourier_emb(torch.log(torch.zeros((BATCH,), device=DEVICE)))
+    b3_diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not all(torch_isfinite(a) and a.shape == shape3 for a in got) \
+            or not b3_diff <= SAMPLE_TOL["bf16"]:
+        raise AssertionError(f"B3 forwards, kernels vs plain: {b3_diff}")
+    report["B3 naive"] = {
+        "config": B3, "num_conditions": 2, "t": list(B3_STEPS),
+        "forward_kernel_vs_plain_max_abs": b3_diff, "tolerance": SAMPLE_TOL["bf16"],
+        "t0_embedding_nonfinite": int((~torch.isfinite(emb_t0)).sum()),
+        "t0_embedding_lanes": emb_t0.numel(),
+        "t0_g1_output_nonfinite": int((~torch.isfinite(at_t0)).sum()),
+        "seconds": time.perf_counter() - t0}
+    print(json.dumps({"card": card, "phase": "model branches", "B3 naive": report["B3 naive"]}),
+          flush=True)
+    del g1, g2, got, want, at_t0
+
+    # -- the two critics: forward and R1's gradient of a gradient
+    t0 = time.perf_counter()
+    report["critics"] = {}
+    for cname, side, c, b in CRITICS:
+        d = getattr(models, cname)(ngf=CRITIC_NGF, t_emb_dim=256, num_channels=c,
+                                   dtype=torch.bfloat16, device=DEVICE)
+        randomize_(d, wgen)
+        x, xt = (torch.randn((b, side, side, c), generator=wgen, device=DEVICE).tanh()
+                 for _ in range(2))
+        t = torch.randint(0, base.num_timesteps, (b,), generator=wgen, device=DEVICE)
+        names = [f"d.{n}" for n, _ in d.named_parameters()]
+        params = list(d.parameters())
+
+        def r1():
+            xs = x.clone().requires_grad_(True)
+            (gx,) = torch.autograd.grad(d(xs, t, xt).float().sum(), xs, create_graph=True)
+            penalty = gx.float().reshape(b, -1).square().sum(dim=1).mean()
+            grads = torch.autograd.grad(penalty, params, allow_unused=True)
+            return penalty, {n: torch.zeros_like(p) if g is None else g
+                             for n, p, g in zip(names, params, grads)}
+
+        n = d.kernel_launches_per_forward()["fir_down2"]
+        with torch.no_grad():
+            logit, _ = count(f"{cname} forward", lambda: d(x, t, xt), {"fir_down2": n})
+        (pen, grads), _ = count(f"{cname} R1", r1, {"fir_down2": 2 * n, "fir_up2": 2 * n})
+        with ops.plain_kernels():
+            with torch.no_grad():
+                logit_p = d(x, t, xt)
+            pen_p, grads_p = r1()
+        logit_err = float((logit.float() - logit_p.float()).abs().max()) / max(
+            float(logit_p.float().abs().max()), 1e-12)
+        pen_err = abs(float(pen.detach()) - float(pen_p.detach())) / max(
+            abs(float(pen_p.detach())), 1e-12)
+        grad_err = max(grad_errors(grads, grads_p)[0].values())
+        loss_tol, grad_tol = TRAIN_TOL["bf16"]
+        report["critics"][cname] = {
+            "image": side, "channels": c, "batch": b, "logit_shape": list(logit.shape),
+            "logit_rel_err": logit_err, "r1_rel_err": pen_err, "r1_grad_rel_err": grad_err,
+            "tolerance": TRAIN_TOL["bf16"]}
+        if not (logit_err <= loss_tol and pen_err <= loss_tol and grad_err <= grad_tol) \
+                or not torch_isfinite(pen):
+            raise AssertionError(f"{cname} kernels vs plain: {report['critics'][cname]}")
+        del d, grads, grads_p
+    report["critics"]["seconds"] = time.perf_counter() - t0
+
+    # -- the train CLI with B1's flags on phase 7's split, then the test CLI
+    t0 = time.perf_counter()
+    b1 = base.replace(**BRANCHES["B1 pyramid"])
+    flags = [a for k, v in BRANCHES["B1 pyramid"].items() for a in (f"--{k}", str(v))]
+    npy = os.path.join(work, "npy")
+    argv = recipe_argv(base) + flags + [
+        "--input_path", npy, "--output_path", os.path.join(work, "branch_results"),
+        "--exp", "branch", "--batch_size", str(TRAIN_BATCH), "--lazy_reg", str(LOOP_LAZY),
+        "--log_every", "1", "--save_ckpt_every", "1", "--attn", "flash",
+        "--seed", str(SEED), "--num_epoch", "1"]
+    tcfg = parse_config(argv, mode="train")[0]
+    if any(getattr(tcfg, k) != v for k, v in BRANCHES["B1 pyramid"].items()):
+        raise AssertionError(f"the train CLI's config is not B1's: {tcfg}")
+    struct = loop_structure(b1)
+    steps = 20 // TRAIN_BATCH
+    r1_steps = [i for i in range(steps) if i % LOOP_LAZY == 0]
+    res, train_s = count("B1 train CLI", lambda: train_cli.main(argv), combine(
+        [(len(r1_steps), struct["r1"]), (steps - len(r1_steps), struct["no_r1"]),
+         (1 + math.ceil(10 / TRAIN_BATCH), struct["sample"])]))
+    if res["r1_steps"] != r1_steps:
+        raise AssertionError(f"B1 train CLI: R1 on {res['r1_steps']}")
+    targv = recipe_argv(base) + flags + ["--input_path", npy, "--ckpt_dir", res["exp_dir"],
+                                         "--attn", "flash",
+                                         "--test_batch_size", str(LOOP_TEST_BATCH)]
+    tres, test_s = count("B1 test CLI", lambda: test_cli.main(targv),
+                         combine([(math.ceil(10 / LOOP_TEST_BATCH), struct["sample_int8"])]))
+    if tres["n_slices"] != 10 or not all(math.isfinite(tres[k]) for k in ("psnr", "ssim",
+                                                                           "mae")):
+        raise AssertionError(f"B1 test CLI: {tres}")
+    report["cli"] = {"flags": flags, "train_s": train_s, "test_s": test_s,
+                     "iteration_s_median": sorted(res["timings"]["iteration_s"])[
+                         len(res["timings"]["iteration_s"]) // 2],
+                     "test": {k: tres[k] for k in ("psnr", "ssim", "mae", "n_slices")},
+                     "seconds": time.perf_counter() - t0}
+
+    totals = combine([(1, c) for c in launches.values()])
+    idle = [k for k in ops.KERNEL_WRAPPERS if not totals[k]]
+    if idle:
+        raise AssertionError(f"the branch phase never launched {idle}")
+    report["launch_counts"] = launches
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"card": card, "phase": "model branches",
+                      **{k: v for k, v in report.items() if not k.startswith("B")}}),
+          flush=True)
+    return {"launches": totals, "log": log, **report}
+
+
 PROFILE_GROUPS = (
     ("K1 conv3x3", ("conv3x3_kernel",)),
     ("K2a fir_down2", ("fir_down2_kernel",)),
@@ -2736,12 +3146,15 @@ def main(argv=None) -> int:
         runp = run_phase(card, work)
         # -- the distributed path at world size 1 over NCCL ---------------------
         distp = distributed_phase(cfg, card, work, loop)
+        # -- the model branches off the recipe, at the serving width ------------
+        branch = branch_phase(card, work)
 
     counts = shape_counts({"launches": log, "volume_launches": volume["log"],
                            "train_launches": train["log"], "int8_launches": int8["log"],
                            "int8_volume_launches": volume["int8_log"],
                            "loop_launches": loop["log"], "run_launches": runp["log"],
-                           "remat_launches": runp["remat_log"]})
+                           "remat_launches": runp["remat_log"],
+                           "branch_launches": branch["log"]})
     fir_shapes = {(kname, *key, 0): c for kname in ("fir_down2", "fir_up2")
                   for key, c in counts[kname].items()}
     fir_shapes.update({(kname, shape, torch.bfloat16, offset): dict.fromkeys(PATHS, 0)
@@ -2845,6 +3258,9 @@ def main(argv=None) -> int:
     if idle:
         raise AssertionError(f"the remat table never launched {idle}")
     print(json.dumps({"card": card, "remat_table_kernels": on_remat}), flush=True)
+    on_branch = [kernel_summary(k, rows, branch["launches"][k], "branch_launches")
+                 for k in ops.KERNEL_WRAPPERS if branch["launches"][k]]
+    print(json.dumps({"card": card, "branch_phase_kernels": on_branch}), flush=True)
     kernels = [kernel_summary(k, rows, counted[k]) for k in ops.KERNEL_WRAPPERS]
     if args.out:
         with open(args.out, "w") as f:
@@ -2852,6 +3268,8 @@ def main(argv=None) -> int:
                        "volume_phase_kernels": on_volume, "training_phase_kernels": on_train,
                        "int8_leg_kernels": on_int8, "loop_phase_kernels": on_loop,
                        "run_phase_kernels": on_run, "remat_table_kernels": on_remat,
+                       "branch_phase_kernels": on_branch,
+                       "branch": {k: v for k, v in branch.items() if k != "log"},
                        "loop": {k: v for k, v in loop.items() if k != "log"},
                        "run": {k: v for k, v in runp.items() if k not in ("log", "remat_log")},
                        "int8": {k: v for k, v in int8.items() if k != "log"}

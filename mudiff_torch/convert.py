@@ -1,10 +1,11 @@
 """Convert the JAX package's parameters to the port's state_dicts.
 
 ``params_from_flax(tree)`` takes the flax ``params`` tree of an
-``NCSNppGenerator`` or a ``DiscriminatorLarge`` as nested dicts of numpy
-arrays (what ``jax.tree_util.tree_map(np.asarray, params)`` gives) and
-returns a ``state_dict`` for the port's module of the same name
-(the critic's ``StyleConv2d``s take the same ``conv`` rules).
+``NCSNppGenerator`` (any branch) or of one of the three critics as nested
+dicts of numpy arrays (what ``jax.tree_util.tree_map(np.asarray,
+params)`` gives) and returns a ``state_dict`` for the port's module of
+the same name (the critics' ``StyleConv2d``s take the same ``conv``
+rules).
 ``train_state_from_flax`` does G1, G2, the critic and the frozen
 ``att_conv`` of a whole JAX train state.  This is the
 one place where the two packages' weight layouts are written down:
@@ -16,6 +17,7 @@ flax leaf                              port key                 layout change
 ``<m>/conv/kernel`` (1, 1, I, O)       ``<m>.weight``           [0, 0].T -> (O, I)
 ``<m>/dense/kernel``, ``<m>/kernel``   ``<m>.weight``           .T -> (O, I)
 ``<nin>/W`` (I, O)                     ``<nin>.weight``         .T -> (O, I)
+``fourier_emb/W`` (nf,)                ``fourier_emb.W``        none
 ``<m>/GroupNorm_0/scale``              ``<m>.weight``           none
 ``<fir>/Conv2d_0/weight`` (3,3,I,O)    same path                none (HWIO)
 ``.../bias``, ``<nin>/b``              ``.../bias``             none
@@ -75,7 +77,9 @@ def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarr
         scope = scope[:-1]
     elif scope and scope[-1] == "GroupNorm_0" and leaf in ("scale", "bias"):
         scope = scope[:-1]
-    if leaf in ("kernel", "W"):
+    if leaf == "W" and arr.ndim == 1:
+        name = "W"  # GaussianFourierProjection's frozen frequencies
+    elif leaf in ("kernel", "W"):
         if arr.ndim == 4 and arr.shape[:2] == (1, 1):
             arr = arr[0, 0].T
         elif arr.ndim == 2:

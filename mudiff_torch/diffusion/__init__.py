@@ -5,9 +5,11 @@ from mudiff_torch.diffusion.sampling import (
     sample_from_model,
     sample_posterior,
     sample_posterior_combine,
+    uncer_loss,
 )
 from mudiff_torch.diffusion.schedule import (
     DiffusionCoefficients,
     PosteriorCoefficients,
     get_sigma_schedule,
+    get_time_schedule,
 )

@@ -1,6 +1,6 @@
 """Forward diffusion, posterior sampling and the T-step reverse sampler.
 
-The port of ``mudiff_tpu/diffusion/sampling.py:25-186``.  The training
+The port of ``mudiff_tpu/diffusion/sampling.py:25-197`` (with ``uncer_loss``).  The training
 helpers ``q_sample``, ``q_sample_pairs`` and ``sample_posterior`` take
 their noise as arguments (``train/steps.py`` draws it from a
 ``torch.Generator`` or injects it).  The JAX
@@ -133,3 +133,11 @@ def sample_from_model(
             post, x0_1.to(torch.float32), x0_2.to(torch.float32), x, t, eps
         )
     return x
+
+
+def uncer_loss(mean: torch.Tensor, var: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Gaussian-NLL-style uncertainty loss, ``mean(0.5 * (exp(-var) *
+    (mean - label)^2 + var))`` (defined and never called in the reference,
+    engine/train.py:378-382; ``mudiff_tpu/diffusion/sampling.py:189``)."""
+    loss1 = torch.exp(-var) * (mean - label) ** 2
+    return torch.mean(0.5 * (loss1 + var))

@@ -33,6 +33,12 @@ def _time_grid(n_timestep: int) -> np.ndarray:
     return t * (1.0 - eps_small) + eps_small
 
 
+def get_time_schedule(num_timesteps: int) -> np.ndarray:
+    """The t grid (no sampler reads it; the JAX package keeps it for API
+    parity, reference engine/train.py:212-218)."""
+    return _time_grid(num_timesteps)
+
+
 def get_sigma_schedule(
     num_timesteps: int,
     beta_min: float,

@@ -129,7 +129,8 @@ def synthetic_calib(model) -> Int8Calib:
     z = torch.zeros((1, cfg.nz), dtype=torch.float32, device=p.device)
     sink: list = []
     with record_scope(sink):
-        model(x, x, x, x, t, z, *([x] if model.adaptive else []))
+        model(x, x, x, x if model.num_conditions == 3 else None, t, z,
+              *([x] if model.adaptive else []))
     return Int8Calib(min_ch=int(model.int8_min_ch), stems=bool(model.int8_stems),
                      sites=tuple((ci, co, (1.0,) * ci) for ci, co, _ in sink))
 

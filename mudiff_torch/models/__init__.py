@@ -1,4 +1,9 @@
-from mudiff_torch.models.critic import DiscriminatorLarge
+from mudiff_torch.models.critic import (
+    DiscriminatorImgLarge,
+    DiscriminatorLarge,
+    DiscriminatorSmall,
+)
 from mudiff_torch.models.generator import NCSNppGenerator
 
-__all__ = ["DiscriminatorLarge", "NCSNppGenerator"]
+__all__ = ["DiscriminatorImgLarge", "DiscriminatorLarge", "DiscriminatorSmall",
+           "NCSNppGenerator"]

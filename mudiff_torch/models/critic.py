@@ -1,17 +1,23 @@
-"""The time-conditional critic of the shipped recipe: ``DiscriminatorLarge``.
+"""The time-conditional critics: ``DiscriminatorLarge`` (the shipped
+recipe's), ``DiscriminatorImgLarge`` and ``DiscriminatorSmall``.
 
-The port of ``mudiff_tpu/models/critic.py:34-157`` (reference
-backbones/discriminator.py:20-99, 175-263).  NHWC; ``dtype`` is the
-compute dtype, parameters stay float32.  It returns ``(logit, mid_feat)``:
-the float32 logit per image and the activation after ``conv3`` (32x
-downsampled, ngf*8 channels), from which the G step builds its masks.
+The port of ``mudiff_tpu/models/critic.py`` (reference
+backbones/discriminator.py:20-349).  NHWC; ``dtype`` is the compute
+dtype, parameters stay float32.  ``DiscriminatorLarge`` returns
+``(logit, mid_feat)``: the float32 logit per image and the activation
+after ``conv3`` (32x downsampled, ngf*8 channels), from which the G step
+builds its masks.  ``DiscriminatorImgLarge`` is the same trunk with the
+logit alone (its start conv takes the 2 * nc channels of ``cat(x, x_t)``,
+as the JAX package builds it: the reference's own constructor builds an
+nc-channel one its forward cannot feed).  ``DiscriminatorSmall`` is the
+CIFAR-scale critic: a non-downsampling ``conv1``, three downsampling
+blocks, a ``final_conv`` initialised at scale 0, and a ``(B, 1)`` logit.
 
 Every conv is a plain ``StyleConv2d`` (``nn/layers.py``), as in the JAX
 package.  ``DownConvBlock``'s two FIR downsamples run kernel K2a
 (``ops.fir_down2``), as the generator's resblocks do where the JAX
 package runs XLA's ``upfirdn2d``; K2a is twice differentiable, so R1's
-double backward runs the kernels too.  ``DiscriminatorSmall`` and
-``DiscriminatorImgLarge`` are not ported (ROADMAP.md).
+double backward runs the kernels too.
 
 On a mesh (``mesh``, set by ``TrainState``) the minibatch-stddev feature
 is the global batch's, as under the JAX package's SPMD critic
@@ -108,27 +114,31 @@ def minibatch_stddev(out: torch.Tensor, stddev_group: int = 4,
     return torch.cat([out, s.to(out.dtype)], dim=-1)
 
 
-class DiscriminatorLarge(nn.Module):
-    """256²-scale critic; ``forward(x, t, x_t)`` returns ``(logit,
-    mid_feat)`` (reference discriminator.py:175-263).  ``num_channels``
-    is the channels of each image (flax infers the start conv's input)."""
+class _Critic(nn.Module):
+    """The critics' common frame: the time embedding, the 1x1 start conv
+    on ``cat(x, x_t)``, the ``DownConvBlock`` trunk ``conv1..convN`` (each
+    ``(out channels, downsample)`` of ``blocks``), the stddev feature, the
+    final conv and the linear logit.  ``num_channels`` is the channels of
+    each image (flax infers the start conv's input)."""
 
-    def __init__(self, ngf: int = 32, t_emb_dim: int = 128,
-                 fir_kernel: Sequence[int] = (1, 3, 3, 1), num_channels: int = 1,
-                 dtype: torch.dtype = torch.float32, device=None,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, ngf: int, t_emb_dim: int, fir_kernel: Sequence[int],
+                 num_channels: int, blocks: Sequence[Tuple[int, bool]],
+                 final_init_scale: float, dtype: torch.dtype, device,
+                 generator: Optional[torch.Generator]):
         super().__init__()
         self.dtype = dtype
+        self.n_blocks = len(blocks)
         kw = dict(dtype=dtype, device=device)
         self.t_embed = TimestepEmbedding(t_emb_dim, t_emb_dim, t_emb_dim, **kw)
         self.start_conv = StyleConv2d(2 * num_channels, ngf * 2, kernel_size=1,
                                       padding=0, **kw)
-        chans = (ngf * 2, ngf * 4, ngf * 8, ngf * 8, ngf * 8, ngf * 8, ngf * 8)
-        for i in range(6):
+        ch = ngf * 2
+        for i, (out_ch, down) in enumerate(blocks):
             setattr(self, f"conv{i + 1}",
-                    DownConvBlock(chans[i], chans[i + 1], t_emb_dim, downsample=True,
+                    DownConvBlock(ch, out_ch, t_emb_dim, downsample=down,
                                   fir_kernel=fir_kernel, **kw))
-        self.final_conv = StyleConv2d(ngf * 8 + 1, ngf * 8, **kw)
+            ch = out_ch
+        self.final_conv = StyleConv2d(ch + 1, ngf * 8, init_scale=final_init_scale, **kw)
         self.end_linear = Dense(ngf * 8, 1, **kw)
         self.mesh: Optional[Mesh] = None
         self.reset_parameters(generator)
@@ -144,18 +154,71 @@ class DiscriminatorLarge(nn.Module):
         return {"fir_down2": sum(2 for m in self.modules()
                                  if isinstance(m, DownConvBlock) and m.downsample)}
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor,
-                x_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _trunk(self, x: torch.Tensor, t: torch.Tensor, x_t: torch.Tensor,
+               tap: int = 0) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the (B, 1) float32 logit, the activation after block ``tap``)."""
         dt = self.dtype
         t_embed = _lrelu(self.t_embed(t))
         h = self.start_conv(torch.cat([x.to(dt), x_t.to(dt)], dim=-1))
-        h = self.conv1(h, t_embed)
-        h = self.conv2(h, t_embed)
-        h = self.conv3(h, t_embed)
-        mid_feat = h
-        h = self.conv4(h, t_embed)
-        h = self.conv5(h, t_embed)
-        h = self.conv6(h, t_embed)
+        feat = None
+        for i in range(self.n_blocks):
+            h = getattr(self, f"conv{i + 1}")(h, t_embed)
+            if i + 1 == tap:
+                feat = h
         h = _lrelu(self.final_conv(minibatch_stddev(h, mesh=self.mesh)))
-        out = self.end_linear(h.sum(dim=(1, 2)))
-        return out.reshape(-1).to(torch.float32), mid_feat
+        return self.end_linear(h.sum(dim=(1, 2))).to(torch.float32), feat
+
+
+def _large_blocks(ngf: int) -> Tuple[Tuple[int, bool], ...]:
+    return tuple((c, True) for c in (ngf * 4, ngf * 8, ngf * 8, ngf * 8, ngf * 8, ngf * 8))
+
+
+class DiscriminatorLarge(_Critic):
+    """256²-scale critic; ``forward(x, t, x_t)`` returns ``(logit,
+    mid_feat)`` (reference discriminator.py:175-263)."""
+
+    def __init__(self, ngf: int = 32, t_emb_dim: int = 128,
+                 fir_kernel: Sequence[int] = (1, 3, 3, 1), num_channels: int = 1,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(ngf, t_emb_dim, fir_kernel, num_channels, _large_blocks(ngf),
+                         1.0, dtype, device, generator)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                x_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        out, mid_feat = self._trunk(x, t, x_t, tap=3)
+        return out.reshape(-1), mid_feat
+
+
+class DiscriminatorImgLarge(_Critic):
+    """The image-only large critic (reference discriminator.py:266-349,
+    ``mudiff_tpu/models/critic.py:160``): ``DiscriminatorLarge``'s trunk,
+    ``forward(x, t, x_t)`` returns the (B,) logit alone."""
+
+    def __init__(self, ngf: int = 32, t_emb_dim: int = 128,
+                 fir_kernel: Sequence[int] = (1, 3, 3, 1), num_channels: int = 1,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(ngf, t_emb_dim, fir_kernel, num_channels, _large_blocks(ngf),
+                         1.0, dtype, device, generator)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+        return self._trunk(x, t, x_t)[0].reshape(-1)
+
+
+class DiscriminatorSmall(_Critic):
+    """The CIFAR-scale critic (reference discriminator.py:101-172,
+    ``mudiff_tpu/models/critic.py:207``): ``conv1`` keeps the resolution,
+    ``conv2..conv4`` halve it, ``final_conv`` starts at scale 0;
+    ``forward(x, t, x_t)`` returns the (B, 1) logit."""
+
+    def __init__(self, ngf: int = 64, t_emb_dim: int = 128,
+                 fir_kernel: Sequence[int] = (1, 3, 3, 1), num_channels: int = 3,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        blocks = ((ngf * 2, False), (ngf * 4, True), (ngf * 8, True), (ngf * 8, True))
+        super().__init__(ngf, t_emb_dim, fir_kernel, num_channels, blocks, 0.0,
+                         dtype, device, generator)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+        return self._trunk(x, t, x_t)[0]

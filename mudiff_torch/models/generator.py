@@ -1,38 +1,51 @@
 """Conditional NCSN++ AdaGN generators: G1 (contrast-specific) and G2
 (``adaptive=True``, contrast-aware).
 
-The port of ``mudiff_tpu/models/generator.py:136-601`` along the
-branches of ``config.brats_recipe``: BigGAN AdaGN resblocks with FIR
-resampling, ``progressive="none"``, ``progressive_input="residual"``
-(or ``"none"``), positional time embedding, one-channel images, three
-conditions.  G1 encodes x_t and the three conditions with four fused
-ConvFeatBlock stems; G2 embeds G1's prediction to a 256-d style (always
-256, whatever ``z_emb_dim``: ``generator.py:333-336``), encodes the
-conditions with style-modulated stems and fuses them with the cyclic
-pairwise gates.  Then the same UNet: resblocks, the residual input
-pyramid, Res-Attn-Res middle, skip-concat decoder, GroupNorm -> SiLU ->
-conv3x3 -> float32 tanh head.
+The port of ``mudiff_tpu/models/generator.py:136-601``, every branch of
+it: the three resblock types (``"biggan"``, ``"biggan_oneadagn"``,
+``"ddpm"``: with ddpm the levels change resolution through
+``Downsample`` / ``Upsample`` modules, ``resamp_with_conv`` choosing
+their conv), the output pyramid (``progressive`` ``"none"`` |
+``"output_skip"`` | ``"residual"``; with ``"output_skip"`` the pyramid is
+the output and there is no ``final_norm`` / ``final_conv``), the input
+pyramid (``progressive_input`` ``"none"`` | ``"input_skip"``, through
+``Combine`` with ``progressive_combine`` ``"cat"`` or ``"sum"`` |
+``"residual"``), the positional or Fourier time embedding (the Fourier
+one embeds ``log(t)``: NaN in every lane at t = 0, as in the JAX package
+and the reference), FIR or naive resampling (``fir``), any number of
+image channels, and three or two conditions (``num_conditions=2``: the
+two-condition variant with its single pairwise fusion ``fuse2``).
+
+G1 encodes x_t and the conditions with ConvFeatBlock stems; G2 embeds
+G1's prediction to a 256-d style (always 256, whatever ``z_emb_dim``:
+``generator.py:333-336``), encodes the conditions with style-modulated
+stems and fuses them with pairwise gates.  With one-channel images the
+stems run fused (``nn/fused_stems.py``; G1 two launches, G2 three), else
+one module each; the gates run fused at any channel count.  Then the
+UNet: resblocks, the pyramids, Res-Attn-Res middle, skip-concat decoder,
+and a float32 tanh head.
 
 Submodules carry the JAX package's names, so ``convert.py`` maps a flax
-tree onto ``state_dict`` keys by rule.  Branches the recipe does not
-take raise ``NotImplementedError``; ROADMAP.md queues them.
+tree onto ``state_dict`` keys by rule.
 
 Under ``config.use_int8`` and outside training mode, the forward runs in
 an ``int8_scope`` (``mudiff_tpu/models/generator.py:93-130``): every
-conv that ``int8_conv_routed`` admits at the generator's threshold runs
-kernel K4 (W8A8), with dynamic per-example scales or, given an
-``Int8Calib``, the calibration's static scales, site by site in forward
-order.
+stride-1 conv that ``int8_conv_routed`` admits at the generator's
+threshold runs kernel K4 (W8A8), with dynamic per-example scales or,
+given an ``Int8Calib``, the calibration's static scales, site by site in
+forward order.
 
 With ``config.use_grad_checkpoint`` (training) the forward recomputes
 regions in the backward instead of keeping their activations
 (``mudiff_tpu/models/generator.py:195-245``, ``nn/remat.py``): under
 ``grad_checkpoint_policy`` ``"blocks"`` (or any string that is not
 ``"hires..."``) every resblock and attention block; under ``"hiresN"``
-those at resolution >= image_size / N (``"hires"``: N = 2).  The
+those at resolution >= image_size / N (``"hires"``: N = 2).  The ddpm
+resample modules and the pyramids are never rematted.  The
 full-resolution regions outside the blocks are rematted under every
-policy: G1's fused stems, G2's adaptive encode and its gate fusion
-(``:299-303, :353-357, :415-419``).  ``remat_regions`` names them.
+policy: the fused stems of G1 and G2 (one-channel images only) and G2's
+gate fusion (``:297-303, :353-357, :415-441``).  ``remat_regions`` names
+them.
 
 Dropout (``config.dropout > 0``) runs in training mode when the forward
 is given ``dropout_seeds``, one per resblock in forward order
@@ -53,16 +66,22 @@ import torch.nn.functional as F
 
 from mudiff_torch.config import MuDiffConfig
 from mudiff_torch.nn.blocks import (
+    RESBLOCKS,
     AffineGroupNorm,
     AttnBlockpp,
+    Combine,
     Downsample,
+    GaussianFourierProjection,
     ResnetBlockBigGANppAdagn,
+    ResnetBlockBigGANppAdagnOne,
+    ResnetBlockDDPMppAdagn,
+    Upsample,
     _num_groups,
 )
 from mudiff_torch.nn.fused_stems import (
-    ConvBlockGAPParams,
-    ConvBlockParams,
-    ConvFeatParams,
+    ConvBlock,
+    ConvBlockGAP,
+    ConvFeatBlock,
     fused_adaptive_encode,
     fused_convfeat_apply,
     fused_gate_convs,
@@ -81,35 +100,26 @@ from mudiff_torch.ops.int8_conv import (
 )
 
 _SQRT2 = math.sqrt(2.0)
-_GATES = ("feat_att1_c12", "feat_att2_c12", "feat_att1_c23",
-          "feat_att2_c23", "feat_att1_c31", "feat_att2_c31")
+# the pairwise gates: three pairs with three conditions, one with two
+_GATES = {3: ("feat_att1_c12", "feat_att2_c12", "feat_att1_c23",
+              "feat_att2_c23", "feat_att1_c31", "feat_att2_c31"),
+          2: ("feat_att1_c12", "feat_att2_c12")}
 
 # Whether the fused stem conv2 runs int8 when neither a calibration nor
 # the constructor says (``mudiff_tpu/nn/fused_stems.py:196-204``).
 STEMS_INT8_DEFAULT = True
 
 
-def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; ROADMAP.md lists what comes in which slice"
-    )
-
-
-def _check_config(cfg: MuDiffConfig, num_conditions: int) -> None:
-    if cfg.resblock_type.lower() != "biggan":
-        raise _unsupported(f"resblock_type={cfg.resblock_type!r}")
-    if cfg.progressive.lower() != "none":
-        raise _unsupported(f"progressive={cfg.progressive!r}")
-    if cfg.progressive_input.lower() not in ("none", "residual"):
-        raise _unsupported(f"progressive_input={cfg.progressive_input!r}")
-    if cfg.embedding_type.lower() != "positional":
-        raise _unsupported(f"embedding_type={cfg.embedding_type!r}")
-    if cfg.num_channels != 1:
-        raise _unsupported("num_channels > 1")
-    if num_conditions != 3:
-        raise _unsupported("num_conditions=2")
-    if not cfg.fir:
-        raise _unsupported("fir=False resampling")
+def _check_branches(cfg: MuDiffConfig, num_conditions: int) -> None:
+    """The values the JAX generator asserts (``generator.py:157-159``)."""
+    if cfg.progressive.lower() not in ("none", "output_skip", "residual"):
+        raise ValueError(f"progressive={cfg.progressive!r}")
+    if cfg.progressive_input.lower() not in ("none", "input_skip", "residual"):
+        raise ValueError(f"progressive_input={cfg.progressive_input!r}")
+    if cfg.embedding_type.lower() not in ("fourier", "positional"):
+        raise ValueError(f"embedding_type={cfg.embedding_type!r}")
+    if num_conditions not in (2, 3):
+        raise ValueError(f"num_conditions={num_conditions}: 2 or 3")
 
 
 def remat_cut(cfg: MuDiffConfig) -> Optional[int]:
@@ -125,9 +135,11 @@ def remat_cut(cfg: MuDiffConfig) -> Optional[int]:
 
 
 def resblock_count(cfg: MuDiffConfig) -> int:
-    """Resblocks in one generator's forward: the dropout seeds it takes."""
+    """Resblocks in one generator's forward: the dropout seeds it takes.
+    The BigGAN types change resolution with resblocks too; ddpm does not."""
     levels, nrb = len(cfg.ch_mult), cfg.num_res_blocks
-    return levels * nrb + (levels - 1) + 2 + levels * (nrb + 1) + (levels - 1)
+    resample = 0 if cfg.resblock_type.lower() == "ddpm" else 2 * (levels - 1)
+    return levels * nrb + 2 + levels * (nrb + 1) + resample
 
 
 class _ZTransform(nn.Module):
@@ -149,14 +161,23 @@ class _ZTransform(nn.Module):
         return h
 
 
+def _skip_add(a: torch.Tensor, h: torch.Tensor, skip_rescale: bool) -> torch.Tensor:
+    """A pyramid joining the trunk: ``(a + h) / sqrt(2)`` in float32 (a
+    numpy float64 scalar in the JAX package), cast to h's dtype."""
+    if skip_rescale:
+        return ((a + h).to(torch.float32) / _SQRT2).to(h.dtype)
+    return a + h
+
+
 class NCSNppGenerator(nn.Module):
     """NCSN++ with AdaGN; ``adaptive=True`` gives G2.
 
-    ``attn`` is the attention lowering (``"einsum"`` | ``"bf16"`` |
-    ``"flash"``, ``nn/blocks.py``),
-    ``dtype`` the compute dtype (parameters stay float32).  Inputs are
-    NHWC; ``forward(x, c1, c2, c3, t, z[, pseudo_target])`` returns the
-    float32 prediction of x_0.
+    ``num_conditions`` is 3 (MU-Diff) or 2 (the two-condition variant:
+    pass ``cond3=None``).  ``attn`` is the attention lowering
+    (``"einsum"`` | ``"bf16"`` | ``"flash"``, ``nn/blocks.py``), ``dtype``
+    the compute dtype (parameters stay float32).  Inputs are NHWC;
+    ``forward(x, c1, c2, c3, t, z[, pseudo_target])`` returns the float32
+    prediction of x_0.
 
     int8 serving (``config.use_int8``): ``int8_calib`` gives static
     scales (None: dynamic); ``int8_min_ch`` is the routing threshold
@@ -176,11 +197,18 @@ class NCSNppGenerator(nn.Module):
                  int8_stems: Optional[bool] = None):
         super().__init__()
         cfg = config
-        _check_config(cfg, num_conditions)
+        _check_branches(cfg, num_conditions)
         self.config = cfg
         self.adaptive = adaptive
+        self.num_conditions = num_conditions
         self.dtype = dtype
         nf = cfg.num_channels_dae
+        chans = cfg.num_channels
+        self.resblock_type = cfg.resblock_type.lower()
+        self.progressive = cfg.progressive.lower()
+        self.progressive_input = cfg.progressive_input.lower()
+        self.fourier = cfg.embedding_type.lower() == "fourier"
+        self.fused_stems = chans == 1
         self.int8_calib = int8_calib
         if int8_calib is not None:
             self.int8_min_ch, self.int8_stems = int8_calib.min_ch, bool(int8_calib.stems)
@@ -191,110 +219,151 @@ class NCSNppGenerator(nn.Module):
                              "gates": Int8WeightCache(), "weights": Int8WeightCache()}
         ch_mult = cfg.ch_mult
         nrb = cfg.num_res_blocks
-        self.all_resolutions = [cfg.image_size // (2 ** i) for i in range(len(ch_mult))]
+        levels = len(ch_mult)
+        self.all_resolutions = [cfg.image_size // (2 ** i) for i in range(levels)]
         kw = dict(dtype=dtype, device=device)
         temb_dim = nf * 4 if cfg.conditional else None
+        fir = dict(fir=cfg.fir, fir_kernel=cfg.fir_kernel)
 
         def resblock(in_ch, out_ch=None, up=False, down=False):
-            return ResnetBlockBigGANppAdagn(
-                in_ch, out_ch, temb_dim=temb_dim, zemb_dim=cfg.z_emb_dim,
-                up=up, down=down, fir_kernel=cfg.fir_kernel,
-                skip_rescale=cfg.skip_rescale, init_scale=0.0, dropout=cfg.dropout, **kw,
-            )
+            common = dict(temb_dim=temb_dim, zemb_dim=cfg.z_emb_dim,
+                          skip_rescale=cfg.skip_rescale, init_scale=0.0,
+                          dropout=cfg.dropout, **kw)
+            if self.resblock_type == "ddpm":
+                return ResnetBlockDDPMppAdagn(in_ch, out_ch, **common)
+            cls = (ResnetBlockBigGANppAdagnOne if self.resblock_type == "biggan_oneadagn"
+                   else ResnetBlockBigGANppAdagn)
+            return cls(in_ch, out_ch, up=up, down=down, **fir, **common)
 
         def attnblock(ch):
             return AttnBlockpp(ch, skip_rescale=cfg.skip_rescale, init_scale=0.0,
                                attn=attn, **kw)
 
         self.z_transform = _ZTransform(cfg.nz, cfg.z_emb_dim, cfg.n_mlp, **kw)
+        if self.fourier:
+            self.fourier_emb = GaussianFourierProjection(nf, cfg.fourier_scale, device=device)
         if cfg.conditional:
-            self.temb_dense0 = Dense(nf, nf * 4, kernel_init=default_init(), **kw)
+            embed = 2 * nf if self.fourier else nf
+            self.temb_dense0 = Dense(embed, nf * 4, kernel_init=default_init(), **kw)
             self.temb_dense1 = Dense(nf * 4, nf * 4, kernel_init=default_init(), **kw)
 
-        # condition encoding (parameters only; the fused functions run them)
-        self.encoder_x = ConvFeatParams(nf, device=device)
+        # condition encoding
+        self.encoder_x = ConvFeatBlock(nf, in_ch=chans, **kw)
         for i in range(num_conditions):
-            name = f"encoder_c{i + 1}"
-            if adaptive:
-                setattr(self, name, ConvBlockParams(nf, style_dim=256, device=device))
-            else:
-                setattr(self, name, ConvFeatParams(nf, device=device))
+            stem = (ConvBlock(nf, style_dim=256, in_ch=chans, **kw) if adaptive
+                    else ConvFeatBlock(nf, in_ch=chans, **kw))
+            setattr(self, f"encoder_c{i + 1}", stem)
         if adaptive:
-            self.pseudo_gap = ConvBlockGAPParams(nf, zemb_dim=256, device=device)
-            for name in _GATES:
+            self.pseudo_gap = ConvBlockGAP(nf, zemb_dim=256, in_ch=chans, **kw)
+            self.gates = _GATES[num_conditions]
+            for name in self.gates:
                 setattr(self, name, Conv3x3(num_conditions * nf, nf, device=device))
-            for i in range(num_conditions):
+            self.n_weights = 3 if num_conditions == 3 else 1
+            for i in range(self.n_weights):
                 setattr(self, f"feat_weight_c{i + 1}", Conv3x3(nf, nf, device=device))
+            stem_ch = (num_conditions + 1) * nf if num_conditions == 3 else 2 * nf
+        else:
+            stem_ch = (num_conditions + 1) * nf
 
-        # encoder
-        self._trunk: List[tuple] = []  # (kind, name) in forward order
-        self._res: Dict[str, int] = {}  # a block's resolution, for the remat policy
-        hs_c = [4 * nf]
-        pyramid_ch = cfg.num_channels
-        residual_input = cfg.progressive_input.lower() == "residual"
+        # the UNet, built in forward order: _trunk lists (kind, name), kind
+        # "block" for a resblock or attention block, "pyramid" for the
+        # resample modules, the pyramids and their combiners; _res holds
+        # each one's resolution, for the remat policy
+        self._trunk: List[Tuple[str, str]] = []
+        self._res: Dict[str, int] = {}
+        hs_c = [stem_ch]
+        pyr_ch = chans
         for i_level, res in enumerate(self.all_resolutions):
             for i_block in range(nrb):
                 out_ch = nf * ch_mult[i_level]
-                self._add(f"down_{i_level}_{i_block}", resblock(hs_c[-1], out_ch), res=res)
+                self._add(f"down_{i_level}_{i_block}", resblock(hs_c[-1], out_ch), res)
                 if res in cfg.attn_resolutions:
-                    self._add(f"down_attn_{i_level}_{i_block}", attnblock(out_ch), res=res)
+                    self._add(f"down_attn_{i_level}_{i_block}", attnblock(out_ch), res)
                 hs_c.append(out_ch)
-            if i_level != len(ch_mult) - 1:
-                self._add(f"downsample_{i_level}", resblock(hs_c[-1], down=True),
-                          kind="downsample", res=res)
-                if residual_input:
-                    self._add(
-                        f"pyramid_downsample_{i_level}",
-                        Downsample(pyramid_ch, hs_c[-1], fir_kernel=cfg.fir_kernel, **kw),
-                        kind="pyramid",
-                    )
-                    pyramid_ch = hs_c[-1]
-                hs_c.append(hs_c[-1])
+            if i_level != levels - 1:
+                ch = hs_c[-1]
+                if self.resblock_type == "ddpm":
+                    self._add(f"downsample_{i_level}",
+                              Downsample(ch, with_conv=cfg.resamp_with_conv, **fir, **kw), res)
+                else:
+                    self._add(f"downsample_{i_level}", resblock(ch, down=True), res)
+                if self.progressive_input == "input_skip":
+                    self._add(f"pyramid_downsample_{i_level}",
+                              Downsample(pyr_ch, with_conv=False, **fir, **kw), res)
+                    self._add(f"combine_{i_level}",
+                              Combine(pyr_ch, ch, method=cfg.progressive_combine.lower(),
+                                      **kw), res)
+                    if cfg.progressive_combine.lower() == "cat":
+                        ch *= 2
+                elif self.progressive_input == "residual":
+                    self._add(f"pyramid_downsample_{i_level}",
+                              Downsample(pyr_ch, ch, with_conv=True, **fir, **kw), res)
+                    pyr_ch = ch
+                hs_c.append(ch)
 
-        # middle
         ch = hs_c[-1]
-        self._add("mid_block1", resblock(ch))
-        self._add("mid_attn", attnblock(ch))
-        self._add("mid_block2", resblock(ch))
+        low = self.all_resolutions[-1]
+        self._add("mid_block1", resblock(ch), low)
+        self._add("mid_attn", attnblock(ch), low)
+        self._add("mid_block2", resblock(ch), low)
 
-        # decoder
-        for i_level in reversed(range(len(ch_mult))):
+        for i_level in reversed(range(levels)):
+            res = self.all_resolutions[i_level]
             for i_block in range(nrb + 1):
                 out_ch = nf * ch_mult[i_level]
-                self._add(f"up_{i_level}_{i_block}",
-                          resblock(ch + hs_c.pop(), out_ch), kind="skip",
-                          res=self.all_resolutions[i_level])
+                self._add(f"up_{i_level}_{i_block}", resblock(ch + hs_c.pop(), out_ch), res)
                 ch = out_ch
-            if self.all_resolutions[i_level] in cfg.attn_resolutions:
-                self._add(f"up_attn_{i_level}", attnblock(ch),
-                          res=self.all_resolutions[i_level])
+            if res in cfg.attn_resolutions:
+                self._add(f"up_attn_{i_level}", attnblock(ch), res)
+            if self.progressive != "none":
+                if i_level != levels - 1:
+                    if self.progressive == "output_skip":
+                        self._add(f"pyramid_upsample_nc_{i_level}",
+                                  Upsample(pyr_ch, with_conv=False, **fir, **kw), res)
+                    else:
+                        self._add(f"pyramid_upsample_{i_level}",
+                                  Upsample(pyr_ch, ch, with_conv=True, **fir, **kw), res)
+                        pyr_ch = ch
+                if self.progressive == "output_skip" or i_level == levels - 1:
+                    self._add(f"pyramid_norm_{i_level}",
+                              AffineGroupNorm(_num_groups(ch), ch, **kw), res)
+                    skip = self.progressive == "output_skip"
+                    self._add(f"pyramid_conv_{i_level}",
+                              Conv3x3(ch, chans if skip else ch,
+                                      init_scale=0.0 if skip else 1.0, **kw), res)
+                    pyr_ch = chans if skip else ch
             if i_level != 0:
-                self._add(f"upsample_{i_level}", resblock(ch, up=True),
-                          res=self.all_resolutions[i_level])
+                if self.resblock_type == "ddpm":
+                    self._add(f"upsample_{i_level}",
+                              Upsample(ch, with_conv=cfg.resamp_with_conv, **fir, **kw), res)
+                else:
+                    self._add(f"upsample_{i_level}", resblock(ch, up=True), res)
         assert not hs_c
 
-        # remat: the blocks the policy selects (the middle ones sit at the
-        # lowest resolution; the pyramid convs are never rematted), and the
-        # full-resolution regions outside the blocks
+        if self.progressive != "output_skip":
+            self.final_norm = AffineGroupNorm(_num_groups(ch), ch, **kw)
+            self.final_conv = Conv3x3(ch, chans, init_scale=0.0, **kw)
+
+        # remat: the resblocks and attention blocks the policy selects, and
+        # the full-resolution regions outside the blocks
+        self._resblocks = [n for _, n in self._trunk if isinstance(getattr(self, n), RESBLOCKS)]
+        assert len(self._resblocks) == resblock_count(cfg)
         cut = remat_cut(cfg)
         self.remat_regions = set()
         if cut is not None:
-            self.remat_regions = {name for kind, name in self._trunk
-                                  if kind != "pyramid" and self._res[name] >= cut}
-            self.remat_regions |= {"encode", "fuse"} if adaptive else {"stems"}
-        self._resblocks = [name for _, name in self._trunk
-                           if isinstance(getattr(self, name), ResnetBlockBigGANppAdagn)]
-        assert len(self._resblocks) == resblock_count(cfg)
-
-        self.final_norm = AffineGroupNorm(_num_groups(ch), ch, **kw)
-        self.final_conv = Conv3x3(ch, cfg.num_channels, init_scale=0.0, **kw)
+            self.remat_regions = {n for kind, n in self._trunk
+                                  if kind == "block" and self._res[n] >= cut}
+            if self.fused_stems:
+                self.remat_regions.add("encode" if adaptive else "stems")
+            if adaptive:
+                self.remat_regions.add("fuse")
         self.reset_parameters(generator)
 
-    def _add(self, name: str, module: nn.Module, kind: str = "block",
-             res: Optional[int] = None) -> None:
+    def _add(self, name: str, module: nn.Module, res: int) -> None:
         setattr(self, name, module)
+        kind = "block" if isinstance(module, (*RESBLOCKS, AttnBlockpp)) else "pyramid"
         self._trunk.append((kind, name))
-        self._res[name] = self.all_resolutions[-1] if res is None else res
+        self._res[name] = res
 
     def _region(self, name: str, fn, *args):
         """``fn(*args)``, rematted when ``name`` is in ``remat_regions``."""
@@ -312,6 +381,11 @@ class NCSNppGenerator(nn.Module):
         """Whether a forward now runs the routed convs on K4."""
         return self.config.use_int8 and not self.training
 
+    def _stems(self) -> List[nn.Module]:
+        """The stem modules in the order a forward runs them."""
+        conds = [getattr(self, f"encoder_c{i + 1}") for i in range(self.num_conditions)]
+        return ([self.pseudo_gap] if self.adaptive else []) + [self.encoder_x] + conds
+
     def int8_sites(self) -> List[Tuple[int, int]]:
         """The (cin, cout) of every conv a forward routes to K4, in forward
         order: the list a calibration must hold (empty unless serving int8)."""
@@ -321,47 +395,81 @@ class NCSNppGenerator(nn.Module):
         def routed(cin, cout):
             return [(cin, cout)] if int8_conv_routed(cin, cout, self.int8_min_ch) else []
 
+        def convs(module):
+            return [s for m in module.modules() if isinstance(m, Conv3x3) and m.on_kernels
+                    for s in routed(m.in_ch, m.out_ch)]
+
         nf = self.config.num_channels_dae
-        n_stems = 4  # x and three conditions (G2's pseudo-GAP stem stays on K1)
-        sites = routed(n_stems * nf, n_stems * nf) if self.int8_stems else []
+        n = self.num_conditions
+        sites = []
+        if self.fused_stems:
+            # x and the conditions (G2's pseudo-GAP stem stays on K1)
+            sites += routed((n + 1) * nf, (n + 1) * nf) if self.int8_stems else []
+        else:
+            for m in self._stems():
+                sites += convs(m)
         if self.adaptive:
-            sites += routed(3 * nf, len(_GATES) * nf) + routed(3 * nf, 3 * nf)
+            sites += routed(n * nf, len(self.gates) * nf)
+            sites += routed(self.n_weights * nf, self.n_weights * nf)
         for _, name in self._trunk:
-            for m in getattr(self, name).modules():
-                if isinstance(m, Conv3x3):
-                    sites += routed(m.in_ch, m.out_ch)
-        return sites + routed(self.final_conv.in_ch, self.final_conv.out_ch)
+            sites += convs(getattr(self, name))
+        return sites + (convs(self.final_conv) if hasattr(self, "final_conv") else [])
 
     def kernel_launches_per_forward(self) -> Dict[str, int]:
         """Kernel launches one forward makes, from the module structure:
-        every Conv3x3 module runs one conv, except the stems' per-stem
-        convs, which run fused (G1: 2 launches, G2: 5); the convs of
-        ``int8_sites`` run K4 and the rest K1; every AttnBlockpp in
-        ``flash`` mode runs K3 once.  Every wrapper of
-        ``ops.KERNEL_WRAPPERS`` has a key (the backward kernels 0)."""
+        every stride-1 Conv3x3 module runs one conv, except those of the
+        fused stems (G1: 2 launches, G2: 3) and G2's gates (2); the convs
+        of ``int8_sites`` run K4 and the rest K1; every FIR resample
+        without a conv (resblocks, pyramids, ddpm resamples) one K2a or
+        K2b; every AttnBlockpp in ``flash`` mode K3 once.  Every wrapper
+        of ``ops.KERNEL_WRAPPERS`` has a key (the backward kernels 0)."""
         counts = dict.fromkeys(KERNEL_WRAPPERS, 0)
-        stem_roots = ["encoder_x", "pseudo_gap", *_GATES] + [
-            n for n, _ in self.named_children()
-            if n.startswith(("encoder_c", "feat_weight_c"))
-        ]
-        for name, m in self.named_modules():
-            if isinstance(m, Conv3x3) and name.split(".")[0] not in stem_roots:
+        fused = [m for m in self._stems() if self.fused_stems]
+        if self.adaptive:
+            fused += [getattr(self, n) for n in self.gates]
+            fused += [getattr(self, f"feat_weight_c{i + 1}") for i in range(self.n_weights)]
+        skip = {id(c) for m in fused for c in m.modules()}
+        for m in self.modules():
+            if isinstance(m, Conv3x3) and m.on_kernels and id(m) not in skip:
                 counts["conv3x3"] += 1
-            if isinstance(m, ResnetBlockBigGANppAdagn):
+            if hasattr(m, "fir_launches"):
                 for k, v in m.fir_launches().items():
                     counts[k] += v
             if isinstance(m, AttnBlockpp) and m.attn == "flash":
                 counts["flash_attn"] += 1
-        counts["conv3x3"] += 5 if self.adaptive else 2
+        if self.fused_stems:
+            counts["conv3x3"] += 3 if self.adaptive else 2
+        if self.adaptive:
+            counts["conv3x3"] += 2
         counts["int8_conv3x3"] = len(self.int8_sites())
         counts["conv3x3"] -= counts["int8_conv3x3"]
         return counts
 
+    def launches_off_the_gradient(self) -> Dict[str, int]:
+        """The launches of ``kernel_launches_per_forward`` whose input needs
+        no gradient when x and the conditions need none (G2's
+        ``pseudo_target`` does), so that a backward transposes none of
+        them: the first stem convs of x and the conditions (G1's fused
+        conv1 is one launch; G2's fused conv1 also takes the pseudo target),
+        and the input_skip pyramid's K2a downsamples of x."""
+        counts = dict.fromkeys(KERNEL_WRAPPERS, 0)
+        if self.fused_stems:
+            counts["conv3x3"] = 0 if self.adaptive else 1
+        else:
+            counts["conv3x3"] = 1 + self.num_conditions
+        if self.progressive_input == "input_skip":
+            counts["fir_down2"] = sum(getattr(self, n).fir_launches()["fir_down2"]
+                                      for _, n in self._trunk
+                                      if n.startswith("pyramid_downsample_"))
+        return counts
+
     def forward(self, x: torch.Tensor, cond1: torch.Tensor, cond2: torch.Tensor,
-                cond3: torch.Tensor, time_cond: torch.Tensor, z: torch.Tensor,
+                cond3: Optional[torch.Tensor], time_cond: torch.Tensor, z: torch.Tensor,
                 pseudo_target: Optional[torch.Tensor] = None,
                 dropout_seeds: Optional[Sequence[int]] = None,
                 dropout_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        if (cond3 is None) != (self.num_conditions == 2):
+            raise ValueError("pass cond3 iff num_conditions == 3")
         seeds = {}
         if self.training and dropout_seeds is not None and self.config.dropout > 0:
             if len(dropout_seeds) != len(self._resblocks):
@@ -379,10 +487,68 @@ class NCSNppGenerator(nn.Module):
             scope.check_consumed()
         return out
 
+    def _encode(self, x, conds, pseudo_target, caches):
+        """The condition encoding: the trunk's first activation."""
+        dt = self.dtype
+        act = F.silu
+        if not self.adaptive:
+            stems = self._stems()
+            if not self.fused_stems:
+                return torch.cat([m(img, act) for m, img in zip(stems, [x] + conds)], dim=-1)
+            return self._region(
+                "stems", lambda s: fused_convfeat_apply(s, stems, act, dt, caches["stems"]),
+                torch.cat([x] + conds, dim=-1))
+        if pseudo_target is None:
+            raise ValueError("G2 needs pseudo_target (G1's prediction)")
+        pcs = [getattr(self, f"encoder_c{i + 1}") for i in range(len(conds))]
+        pseudo = pseudo_target.to(dt)
+        if self.fused_stems:
+            def encode(x_, pseudo_, *cs):
+                x_feat, feats, _ = fused_adaptive_encode(
+                    x_, list(cs), pseudo_, self.encoder_x, pcs, self.pseudo_gap,
+                    act, dt, caches["stems"])
+                return (x_feat, *feats)
+
+            x_feat, *feats = self._region("encode", encode, x, pseudo, *conds)
+        else:
+            style = self.pseudo_gap(pseudo, act)
+            x_feat = self.encoder_x(x, act)
+            feats = [m(c, style, act) for m, c in zip(pcs, conds)]
+        allc = torch.cat(feats, dim=-1)
+        gates = [getattr(self, n) for n in self.gates]
+        weights = [getattr(self, f"feat_weight_c{i + 1}") for i in range(self.n_weights)]
+
+        def fuse3(allc_, c1, c2, c3, x_feat_):
+            a1_12, a2_12, a1_23, a2_23, a1_31, a2_31 = fused_gate_convs(
+                allc_, gates, dt, caches["gates"])
+            c1_att, c2_att, c3_att = fused_weight_convs(
+                [a1_12 * c1, a1_23 * c2, a1_31 * c3], weights, dt, caches["weights"])
+            fused12 = a2_12 * c1_att + (1 - a2_12) * c2
+            fused23 = a2_23 * c2_att + (1 - a2_23) * c3
+            fused31 = a2_31 * c3_att + (1 - a2_31) * c1
+            return torch.cat([x_feat_, fused12, fused23, fused31], dim=-1)
+
+        def fuse2(allc_, c1, c2, x_feat_):
+            a1_12, a2_12 = fused_gate_convs(allc_, gates, dt, caches["gates"])
+            (c1_att,) = fused_weight_convs([a1_12 * c1], weights, dt, caches["weights"])
+            return torch.cat([x_feat_, a2_12 * c1_att + (1 - a2_12) * c2], dim=-1)
+
+        fuse = fuse3 if self.num_conditions == 3 else fuse2
+        return self._region("fuse", fuse, allc, *feats, x_feat)
+
+    def _pyramid_head(self, i_level: int, h: torch.Tensor) -> torch.Tensor:
+        norm = getattr(self, f"pyramid_norm_{i_level}")
+        return getattr(self, f"pyramid_conv_{i_level}")(F.silu(norm(h)))
+
+    def _block(self, name, h, temb, zemb, seeds):
+        return self._region(name, getattr(self, name), h, temb, zemb, seeds.get(name))
+
     def _forward(self, x, cond1, cond2, cond3, time_cond, z, pseudo_target, seeds):
         cfg = self.config
         dt = self.dtype
         act = F.silu
+        levels = len(cfg.ch_mult)
+        attn_res = cfg.attn_resolutions
         # the int8 weight caches are serving state: a training forward (and
         # its recompute) never reads or fills them
         caches = dict.fromkeys(self._int8_caches) if self.training else self._int8_caches
@@ -390,79 +556,75 @@ class NCSNppGenerator(nn.Module):
         zemb = self.z_transform(z)
         temb = None
         if cfg.conditional:
-            temb = get_timestep_embedding(time_cond, cfg.num_channels_dae)
+            if self.fourier:
+                temb = self.fourier_emb(torch.log(time_cond.to(torch.float32)))
+            else:
+                temb = get_timestep_embedding(time_cond, cfg.num_channels_dae)
             temb = self.temb_dense1(act(self.temb_dense0(temb.to(dt))))
 
         if not cfg.centered:
             x = 2 * x - 1.0
         x = x.to(dt)
-        conds = [cond1.to(dt), cond2.to(dt), cond3.to(dt)]
+        conds = [c.to(dt) for c in (cond1, cond2, cond3)[:self.num_conditions]]
         input_pyramid = x
 
-        if not self.adaptive:
-            stems = [self.encoder_x] + [getattr(self, f"encoder_c{i + 1}")
-                                        for i in range(len(conds))]
-            h = self._region(
-                "stems", lambda s: fused_convfeat_apply(s, stems, act, dt, caches["stems"]),
-                torch.cat([x] + conds, dim=-1))
-        else:
-            if pseudo_target is None:
-                raise ValueError("G2 needs pseudo_target (G1's prediction)")
-            pcs = [getattr(self, f"encoder_c{i + 1}") for i in range(len(conds))]
-
-            def encode(x_, c1, c2, c3, pseudo):
-                x_feat, feats, _ = fused_adaptive_encode(
-                    x_, [c1, c2, c3], pseudo, self.encoder_x, pcs, self.pseudo_gap,
-                    act, dt, caches["stems"])
-                return (x_feat, *feats)
-
-            def fuse3(allc, c1, c2, c3, x_feat):
-                a1_12, a2_12, a1_23, a2_23, a1_31, a2_31 = fused_gate_convs(
-                    allc, [getattr(self, n) for n in _GATES], dt, caches["gates"])
-                c1_att, c2_att, c3_att = fused_weight_convs(
-                    [a1_12 * c1, a1_23 * c2, a1_31 * c3],
-                    [getattr(self, f"feat_weight_c{i + 1}") for i in range(3)], dt,
-                    caches["weights"])
-                fused12 = a2_12 * c1_att + (1 - a2_12) * c2
-                fused23 = a2_23 * c2_att + (1 - a2_23) * c3
-                fused31 = a2_31 * c3_att + (1 - a2_31) * c1
-                return torch.cat([x_feat, fused12, fused23, fused31], dim=-1)
-
-            x_feat, *feats = self._region("encode", encode, x, *conds, pseudo_target.to(dt))
-            allc = torch.cat(feats, dim=-1)
-            h = self._region("fuse", fuse3, allc, *feats, x_feat)
-
-        hs = [h]
-        for kind, name in self._trunk:
-            m = getattr(self, name)
-            if kind == "pyramid":
-                input_pyramid = m(input_pyramid)
-                if cfg.skip_rescale:
-                    input_pyramid = ((input_pyramid + h).to(torch.float32)
-                                     / _SQRT2).to(h.dtype)
-                else:
-                    input_pyramid = input_pyramid + h
-                h = input_pyramid
-                hs[-1] = h
-                continue
-            if isinstance(m, AttnBlockpp):
-                h = self._region(name, m, h)
-                if name.startswith("down_attn"):
-                    hs[-1] = h
-                continue
-            if kind == "skip":
-                x_in = torch.cat([h, hs.pop()], dim=-1)
-            elif name.startswith("down"):  # down_* and downsample_*
-                x_in = hs[-1]
-            else:  # middle blocks, upsample blocks
-                x_in = h
-            h = self._region(name, m, x_in, temb, zemb, seeds.get(name))
-            if name.startswith("down"):
+        hs = [self._encode(x, conds, pseudo_target, caches)]
+        for i_level in range(levels):
+            res = self.all_resolutions[i_level]
+            for i_block in range(cfg.num_res_blocks):
+                h = self._block(f"down_{i_level}_{i_block}", hs[-1], temb, zemb, seeds)
+                if res in attn_res:
+                    name = f"down_attn_{i_level}_{i_block}"
+                    h = self._region(name, getattr(self, name), h)
                 hs.append(h)
+            if i_level != levels - 1:
+                if self.resblock_type == "ddpm":
+                    h = getattr(self, f"downsample_{i_level}")(hs[-1])
+                else:
+                    h = self._block(f"downsample_{i_level}", hs[-1], temb, zemb, seeds)
+                if self.progressive_input != "none":
+                    input_pyramid = getattr(self, f"pyramid_downsample_{i_level}")(input_pyramid)
+                    if self.progressive_input == "input_skip":
+                        h = getattr(self, f"combine_{i_level}")(input_pyramid, h)
+                    else:
+                        input_pyramid = _skip_add(input_pyramid, h, cfg.skip_rescale)
+                        h = input_pyramid
+                hs.append(h)
+
+        h = hs[-1]
+        h = self._block("mid_block1", h, temb, zemb, seeds)
+        h = self._region("mid_attn", self.mid_attn, h)
+        h = self._block("mid_block2", h, temb, zemb, seeds)
+
+        pyramid = None
+        for i_level in reversed(range(levels)):
+            for i_block in range(cfg.num_res_blocks + 1):
+                h = self._block(f"up_{i_level}_{i_block}", torch.cat([h, hs.pop()], dim=-1),
+                                temb, zemb, seeds)
+            if self.all_resolutions[i_level] in attn_res:
+                name = f"up_attn_{i_level}"
+                h = self._region(name, getattr(self, name), h)
+            if self.progressive != "none":
+                if i_level == levels - 1:
+                    pyramid = self._pyramid_head(i_level, h)
+                elif self.progressive == "output_skip":
+                    pyramid = getattr(self, f"pyramid_upsample_nc_{i_level}")(pyramid)
+                    pyramid = pyramid + self._pyramid_head(i_level, h)
+                else:
+                    pyramid = getattr(self, f"pyramid_upsample_{i_level}")(pyramid)
+                    pyramid = _skip_add(pyramid, h, cfg.skip_rescale)
+                    h = pyramid
+            if i_level != 0:
+                if self.resblock_type == "ddpm":
+                    h = getattr(self, f"upsample_{i_level}")(h)
+                else:
+                    h = self._block(f"upsample_{i_level}", h, temb, zemb, seeds)
         assert not hs
 
-        h = act(self.final_norm(h))
-        h = self.final_conv(h)
+        if self.progressive == "output_skip":
+            h = pyramid
+        else:
+            h = self.final_conv(act(self.final_norm(h)))
         if not cfg.not_use_tanh:
             return torch.tanh(h.to(torch.float32))
         return h.to(torch.float32)

@@ -1,18 +1,24 @@
-"""The fused condition-image stems of G1 and G2.
+"""The condition-image stems of G1 and G2, fused and per stem.
 
 The port of ``mudiff_tpu/nn/fused_stems.py:47-114,249-500`` in its dense
-(``groups == 1``) form.  The generator encodes x_t and the condition
+(``groups == 1``) form, and of the per-stem modules
+``mudiff_tpu/nn/blocks.py:541-589`` (``ConvFeatBlock``, ``ConvBlock``,
+``ConvBlockGAP``).  The generator encodes x_t and the condition
 images through N two-conv stems; the N stems run as ONE conv with a
 block-diagonal kernel (off-diagonal blocks are exact zeros, so every
 output equals the per-stem computation), one stacked GroupNorm whose
 groups never cross a stem, and a second block-diagonal conv.  Outputs
 are stem-major: channels ``[i*F, (i+1)*F)`` belong to stem i.
 
-The ``*Params`` modules declare the per-stem parameters under the JAX
-package's names (``encoder_x``, ``encoder_c{i}``, ``pseudo_gap``,
-``feat_att*``, ``feat_weight_c*``) and compute nothing; the functions
-below assemble the fused kernels from them on every call.  Every fused
-conv is a 3x3 stride-1 conv, so it runs kernel K1 on CUDA tensors.
+The three stem modules hold the per-stem parameters under the JAX
+package's names (``encoder_x``, ``encoder_c{i}``, ``pseudo_gap``; the
+gates ``feat_att*`` and ``feat_weight_c*`` are plain ``Conv3x3``s).  With
+one-channel images the generator runs them fused: the functions below
+assemble the fused kernels from their parameters on every call.  With
+more channels it calls each module's own ``forward`` (as the JAX
+package does, ``mudiff_tpu/models/generator.py:304-318,358-379``); the
+parameters are the same either way.  Every conv is a 3x3 stride-1 conv,
+so it runs kernel K1 on CUDA tensors, fused or not.
 
 Under int8 serving (``mudiff_tpu/nn/fused_stems.py:206-240``) a fused
 conv given an ``Int8WeightCache`` runs K4 when the enclosing int8 scope
@@ -42,36 +48,51 @@ from mudiff_torch.ops.int8_conv import (
 Act = Callable[[torch.Tensor], torch.Tensor]
 
 
-class ConvFeatParams(nn.Module):
-    """Parameters of ConvFeatBlock: conv1 (in_ch -> F), conv2 (F -> F)."""
+class ConvFeatBlock(nn.Module):
+    """Condition-image encoder: conv1 (in_ch -> F) - GroupNorm - act -
+    conv2 (F -> F) (reference layerspp.py:394-423)."""
 
-    def __init__(self, features: int, in_ch: int = 1, device=None):
+    def __init__(self, features: int, in_ch: int = 1,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.conv1 = Conv3x3(in_ch, features, device=device)
-        self.conv2 = Conv3x3(features, features, device=device)
+        self.conv1 = Conv3x3(in_ch, features, dtype=dtype, device=device)
+        self.conv2 = Conv3x3(features, features, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, act: Act) -> torch.Tensor:
+        h = self.conv1(x)
+        return self.conv2(act(group_norm(h, _num_groups(h.shape[-1]), h.dtype)))
 
 
-class ConvBlockParams(nn.Module):
-    """Parameters of ConvBlock: conv1, the AdaGN style dense
-    (``group_norm.style``), conv2."""
+class ConvBlock(nn.Module):
+    """Style-modulated condition encoder: conv1 - AdaGN(style)
+    (``group_norm.style``) - act - conv2 (reference layerspp.py:426-455)."""
 
     def __init__(self, features: int, style_dim: int = 256, in_ch: int = 1,
-                 device=None):
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.conv1 = Conv3x3(in_ch, features, device=device)
-        self.group_norm = AdaptiveGroupNorm(features, style_dim, device=device)
-        self.conv2 = Conv3x3(features, features, device=device)
+        self.conv1 = Conv3x3(in_ch, features, dtype=dtype, device=device)
+        self.group_norm = AdaptiveGroupNorm(features, style_dim, dtype=dtype, device=device)
+        self.conv2 = Conv3x3(features, features, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor, act: Act) -> torch.Tensor:
+        return self.conv2(act(self.group_norm(self.conv1(x), style)))
 
 
-class ConvBlockGAPParams(nn.Module):
-    """Parameters of ConvBlockGAP: conv1, conv2, fc (F -> zemb_dim)."""
+class ConvBlockGAP(nn.Module):
+    """Image -> style vector: conv1 - GroupNorm - act - conv2 - global
+    mean - fc (F -> zemb_dim) (reference layerspp.py:458-501)."""
 
     def __init__(self, features: int, zemb_dim: int = 256, in_ch: int = 1,
-                 device=None):
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.conv1 = Conv3x3(in_ch, features, device=device)
-        self.conv2 = Conv3x3(features, features, device=device)
-        self.fc = Dense(features, zemb_dim, device=device)
+        self.conv1 = Conv3x3(in_ch, features, dtype=dtype, device=device)
+        self.conv2 = Conv3x3(features, features, dtype=dtype, device=device)
+        self.fc = Dense(features, zemb_dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, act: Act) -> torch.Tensor:
+        h = self.conv1(x)
+        h = self.conv2(act(group_norm(h, _num_groups(h.shape[-1]), h.dtype)))
+        return self.fc(h.mean(dim=(1, 2)))
 
 
 def block_diag_conv1(kernels: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -123,7 +144,7 @@ def stacked_group_norm(h: torch.Tensor, n_stems: int,
     return group_norm(h, n_stems * groups_per_stem, h.dtype)
 
 
-def fused_convfeat_apply(stacked: torch.Tensor, params: List[ConvFeatParams],
+def fused_convfeat_apply(stacked: torch.Tensor, params: List[ConvFeatBlock],
                          act: Act, dtype: torch.dtype,
                          stems_int8: Optional[Int8WeightCache] = None) -> torch.Tensor:
     """N ConvFeatBlocks in one pass.  stacked: (B,H,W,N) 1-channel inputs;
@@ -144,9 +165,9 @@ def fused_adaptive_encode(
     x: torch.Tensor,
     conds: List[torch.Tensor],
     pseudo: torch.Tensor,
-    px: ConvFeatParams,
-    pcs: List[ConvBlockParams],
-    pgap: ConvBlockGAPParams,
+    px: ConvFeatBlock,
+    pcs: List[ConvBlock],
+    pgap: ConvBlockGAP,
     act: Act,
     dtype: torch.dtype,
     stems_int8: Optional[Int8WeightCache] = None,

@@ -1,7 +1,7 @@
-"""Primitive layers: convs, dense, NIN, the critic's StyleConv2d, time
-embedding, PixelNorm.
+"""Primitive layers: the activation registry, convs, dense, NIN, the
+critic's StyleConv2d, time embedding, PixelNorm.
 
-The port of ``mudiff_tpu/nn/layers.py:101-283``.  Tensors are NHWC.
+The port of ``mudiff_tpu/nn/layers.py:26-283``.  Tensors are NHWC.
 Parameters are float32; each module casts them and its input to its
 compute ``dtype`` at use, as flax does with ``param_dtype=float32``.
 
@@ -19,7 +19,7 @@ draws the JAX package's initial distribution from a CPU
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -35,8 +35,22 @@ from mudiff_torch.ops.int8_conv import (
 )
 
 
+def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Activation registry (reference backbones/layers.py:33-45)."""
+    name = name.lower()
+    if name == "elu":
+        return F.elu
+    if name == "relu":
+        return F.relu
+    if name == "lrelu":
+        return lambda x: F.leaky_relu(x, 0.2)
+    if name in ("swish", "silu"):
+        return F.silu
+    raise NotImplementedError(f"activation {name} does not exist")
+
+
 class Conv3x3(nn.Module):
-    """3x3 stride-1 SAME conv with DDPM init (reference layers.py:122-128).
+    """3x3 conv with DDPM init (reference layers.py:122-128).
 
     Runs kernel K1 on CUDA tensors (``ops/conv3x3.py``); the fp32 bias is
     added to the kernel's fp32 accumulator and the sum rounded once, as
@@ -49,12 +63,20 @@ class Conv3x3(nn.Module):
     fp32 parameter is quantized (and cached), never its compute-dtype
     copy, and the input goes in as it arrives.  The parameters are the
     same in both modes, so any checkpoint serves quantized.
+
+    ``stride`` / ``padding`` other than 1 / 1 (the naive ``Downsample``'s
+    stride-2 VALID conv) take flax ``nn.Conv``'s path in the JAX package,
+    not the Pallas conv: here ``F.conv2d`` in the compute dtype, its
+    result rounded to it and a compute-dtype bias added, as ``nn.Conv``
+    does.  Such a conv is neither K1 nor K4.
     """
 
     def __init__(self, in_ch: int, out_ch: int, init_scale: float = 1.0,
+                 stride: int = 1, padding: int = 1,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.in_ch, self.out_ch = in_ch, out_ch
+        self.stride, self.padding = stride, padding
         self.init_scale = init_scale
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(3, 3, in_ch, out_ch, device=device))
@@ -68,7 +90,17 @@ class Conv3x3(nn.Module):
         with torch.no_grad():
             self.bias.zero_()
 
+    @property
+    def on_kernels(self) -> bool:
+        """Whether the conv runs K1 (or K4): stride 1, SAME."""
+        return self.stride == 1 and self.padding == 1
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.on_kernels:
+            dt = self.dtype
+            y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt).permute(3, 2, 0, 1),
+                         stride=self.stride, padding=self.padding).permute(0, 2, 3, 1)
+            return y + self.bias.to(dt)
         if (not self.training and int8_enabled()
                 and int8_conv_routed(self.in_ch, self.out_ch)):
             return routed_conv(x, self.out_ch, lambda: self.weight, (self.weight,),

@@ -1,12 +1,14 @@
-"""Ops of the port: the FIR family (plain PyTorch) and the hand-written
-CUDA kernels K1 (``conv3x3``), K2a (``fir_down2``), K2b (``fir_up2``), K3
-(``flash_attn``), K3's backward (``flash_attn_bwd_dkv``,
+"""Ops of the port: the FIR family, ``upsample_conv_2d`` /
+``conv_downsample_2d`` and ``fused_leaky_relu`` (plain PyTorch), and the
+hand-written CUDA kernels K1 (``conv3x3``), K2a (``fir_down2``), K2b
+(``fir_up2``), K3 (``flash_attn``), K3's backward (``flash_attn_bwd_dkv``,
 ``flash_attn_bwd_dq``) and K4 (``int8_conv3x3``, W8A8, inference only).
 The other wrappers are differentiable: K2 twice, K1 and K3 once."""
 
 from mudiff_torch.ops._dispatch import plain_kernels, record_calls
 from mudiff_torch.ops.conv3x3 import conv3x3, conv3x3_plain
 from mudiff_torch.ops.fir import fir_down2, fir_up2
+from mudiff_torch.ops.fused_act import fused_leaky_relu
 from mudiff_torch.ops.flash_attn import (
     attn_di,
     flash_attn,
@@ -23,6 +25,7 @@ from mudiff_torch.ops.upfirdn2d import (
     setup_fir_kernel,
     upfirdn2d,
     upsample_2d,
+    upsample_conv_2d,
 )
 
 KERNEL_WRAPPERS = {"conv3x3": conv3x3, "fir_down2": fir_down2, "fir_up2": fir_up2,

@@ -138,18 +138,28 @@ class _FirUp2(torch.autograd.Function):
             return _FirDown2.apply(g.contiguous(), ctx.k, 4.0 * ctx.gain), None, None
 
 
+def _symmetric(k: Sequence[float]) -> tuple:
+    """``k`` as a tuple; raises unless it reads the same reversed: the
+    adjoints above are exact only then, and the Pallas kernels correlate
+    where ``upfirdn2d`` convolves (the two agree only then)."""
+    k = tuple(float(v) for v in k)
+    if k != k[::-1]:
+        raise ValueError(f"fir_down2 / fir_up2 take a symmetric kernel, got {k!r}")
+    return k
+
+
 def fir_down2(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1),
               gain: float = 1.0) -> torch.Tensor:
     """FIR downsample by 2, pad (1,1): (B,H,W,C) -> (B,(H-2)//2+1,(W-2)//2+1,C).
-    Twice differentiable; ``k`` must be symmetric for the backward."""
-    return _FirDown2.apply(x, tuple(k), float(gain))
+    Twice differentiable; ``k`` must be symmetric (else ValueError)."""
+    return _FirDown2.apply(x, _symmetric(k), float(gain))
 
 
 def fir_up2(x: torch.Tensor, k: Sequence[float] = (1, 3, 3, 1),
             gain: float = 1.0) -> torch.Tensor:
     """FIR upsample by 2, gain 4 x ``gain``: (B,H,W,C) -> (B,2H,2W,C).
-    Twice differentiable; ``k`` must be symmetric for the backward."""
-    return _FirUp2.apply(x, tuple(k), float(gain))
+    Twice differentiable; ``k`` must be symmetric (else ValueError)."""
+    return _FirUp2.apply(x, _symmetric(k), float(gain))
 
 
 fir_down2.launches = 0

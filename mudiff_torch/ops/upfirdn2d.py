@@ -1,6 +1,6 @@
 """upfirdn2d and the StyleGAN2 FIR resampling family, plain PyTorch, NHWC.
 
-The port of ``mudiff_tpu/ops/upfirdn2d.py:35-134,185-215``.  Numerical
+The port of ``mudiff_tpu/ops/upfirdn2d.py:35-215``.  Numerical
 spec (reference utils/op/upfirdn2d.py:201-242):
   1. zero-insert upsample by ``up`` (each pixel followed by up-1 zeros),
   2. pad each spatial dim by (pad0, pad1); negative pads crop,
@@ -16,8 +16,9 @@ Arithmetic is float32 whatever the input dtype; the result is cast back.
 
 ``downsample_2d`` and ``upsample_2d`` are the plain versions of the
 ``fir_down2`` / ``fir_up2`` CUDA kernels (``ops/fir.py``).
-``conv_downsample_2d`` is the pyramid's ``FIRConv2d(down=True)`` and runs
-as written here on every device, as the JAX package leaves it to XLA.
+``conv_downsample_2d`` and ``upsample_conv_2d`` are ``FIRConv2d``'s down
+and up variants and run as written here on every device, as the JAX
+package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -141,3 +142,36 @@ def conv_downsample_2d(
         stride=factor,
     )
     return out.permute(0, 2, 3, 1).contiguous()
+
+
+def upsample_conv_2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    k: Optional[KernelLike] = None,
+    factor: int = 2,
+    gain: float = 1.0,
+) -> torch.Tensor:
+    """A factor-``factor`` transposed conv with ``w``, then the FIR filter
+    (gain x factor^2): (B,H,W,I) -> (B,2H,2W,O) for a 3x3 ``w`` at factor 2.
+
+    ``x`` is NHWC, ``w`` HWIO (reference up_or_down_sampling.py:77-146).
+    The reference feeds ``conv_transpose2d`` spatially pre-flipped weights
+    and the transposed conv flips them again, so the net op is a
+    correlation with the unflipped ``w`` over the zero-dilated input with
+    full ``kh - 1`` padding (``mudiff_tpu/ops/upfirdn2d.py:161-166``):
+    ``conv_transpose2d`` with the flipped ``w``.  Its output is
+    ``factor * (H - 1) + kh`` wide (2H+1 for 3x3 at factor 2); the FIR
+    pads it by ``((p+1)//2 + factor - 1, p//2 + 1)``.  The conv runs in the
+    input dtype, as the JAX package's does.
+    """
+    assert isinstance(factor, int) and factor >= 1
+    kh, kw_, _, _ = w.shape
+    assert kh == kw_
+    if k is None:
+        k = [1.0] * factor
+    k = setup_fir_kernel(k) * (gain * (factor ** 2))
+    p = (k.shape[0] - factor) - (kh - 1)
+    wt = torch.flip(w.to(x.dtype), (0, 1)).permute(2, 3, 0, 1)  # (I, O, kh, kw)
+    out = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=factor)
+    out = out.permute(0, 2, 3, 1)
+    return upfirdn2d(out, k, pad=((p + 1) // 2 + factor - 1, p // 2 + 1))

@@ -248,19 +248,23 @@ class TrainState:
         backward (to x_t) runs one FIR up per FIR down of the real pass,
         and the second backward one FIR down per such FIR up.  G step: G1
         and G2 forward, two critic forwards, and the backward to G1's and
-        G2's parameters: every K1 forward has its ``dx`` K1 launch except
-        G1's first stem conv, whose inputs (x_{t+1}, conditions) need no
-        gradient; every FIR resample is transposed by the other one; every
-        K3 forward has one dkv and one dq launch.
+        G2's parameters: every K1 forward has its ``dx`` K1 launch and every
+        FIR resample is transposed by the other one, except the launches
+        whose inputs (x_{t+1}, conditions) need no gradient
+        (``launches_off_the_gradient``: G1's first stem conv, with
+        one-channel images); every K3 forward has one dkv and one dq launch.
         """
-        fwd = [self.g1.kernel_launches_per_forward(), self.g2.kernel_launches_per_forward()]
+        gens = (self.g1, self.g2)
+        fwd = [g.kernel_launches_per_forward() for g in gens]
+        off = [g.launches_off_the_gradient() for g in gens]
         f = {k: fwd[0][k] + fwd[1][k] for k in fwd[0]}
+        b = {k: f[k] - off[0][k] - off[1][k] for k in f}  # transposed in the G step
         cd = self.d.kernel_launches_per_forward()["fir_down2"]
         r1 = cd if with_r1 else 0
         counts = dict.fromkeys(f, 0)
-        counts["conv3x3"] = f["conv3x3"] + 2 * f["conv3x3"] - 1
-        counts["fir_down2"] = 2 * f["fir_down2"] + f["fir_up2"] + 5 * cd + r1
-        counts["fir_up2"] = 2 * f["fir_up2"] + f["fir_down2"] + 5 * cd + r1
+        counts["conv3x3"] = 2 * f["conv3x3"] + b["conv3x3"]
+        counts["fir_down2"] = 2 * f["fir_down2"] + b["fir_up2"] + 5 * cd + r1
+        counts["fir_up2"] = 2 * f["fir_up2"] + b["fir_down2"] + 5 * cd + r1
         counts["flash_attn"] = 2 * f["flash_attn"]
         counts["flash_attn_bwd_dkv"] = counts["flash_attn_bwd_dq"] = f["flash_attn"]
         return counts

@@ -193,13 +193,13 @@ class _G2Stems(fnn.Module):
 class _PortStems(torch.nn.Module):
     def __init__(self, adaptive):
         super().__init__()
-        self.encoder_x = fused_stems.ConvFeatParams(NF)
+        self.encoder_x = fused_stems.ConvFeatBlock(NF)
         for i in range(3):
             setattr(self, f"encoder_c{i + 1}",
-                    fused_stems.ConvBlockParams(NF) if adaptive
-                    else fused_stems.ConvFeatParams(NF))
+                    fused_stems.ConvBlock(NF) if adaptive
+                    else fused_stems.ConvFeatBlock(NF))
         if adaptive:
-            self.pseudo_gap = fused_stems.ConvBlockGAPParams(NF)
+            self.pseudo_gap = fused_stems.ConvBlockGAP(NF)
 
 
 def test_fused_convfeat_apply_matches_jax():

@@ -295,14 +295,6 @@ def test_bilinear_resize_matches_jax_image_resize():
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
 
 
-def test_train_state_refuses_what_is_not_ported():
-    # remat and dropout are ported (tests/test_torch_port_remat.py); the
-    # model branches off the recipe are not
-    for over in (dict(resblock_type="ddpm"), dict(embedding_type="fourier")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            create_train_state(config.MuDiffConfig(**{**TINY, **over}), device="cpu")
-
-
 @pytest.mark.parametrize("over", [dict(use_grad_checkpoint=True, grad_checkpoint_policy="hires"),
                                   dict(dropout=0.1)])
 def test_train_state_takes_remat_and_dropout(over):

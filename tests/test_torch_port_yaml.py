@@ -195,16 +195,16 @@ def test_find_modality_files_matches_jax(names, tmp_path):
 
 
 def test_registry_resolves_the_jax_names():
-    assert sorted([*registry._MODELS, *registry._NOT_PORTED]) == sorted(jregistry._MODELS)
-    from mudiff_torch.models import DiscriminatorLarge, NCSNppGenerator
+    assert sorted(registry._MODELS) == sorted(jregistry._MODELS)
+    from mudiff_torch.models import (DiscriminatorImgLarge, DiscriminatorLarge,
+                                     DiscriminatorSmall, NCSNppGenerator)
 
     assert registry.get_model("ncsnpp") is NCSNppGenerator
     assert registry.get_model("discriminator_large") is DiscriminatorLarge
     cfg = config.MuDiffConfig(image_size=32, num_channels=1, num_channels_dae=16,
                               ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(16,))
     assert registry.get_model("ncsnpp_adaptive")(cfg).adaptive
-    for name in ("discriminator_small", "discriminator_img_large"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            registry.get_model(name)
+    assert registry.get_model("discriminator_small") is DiscriminatorSmall
+    assert registry.get_model("discriminator_img_large") is DiscriminatorImgLarge
     with pytest.raises(ValueError, match="Already registered"):
         registry.register_model(NCSNppGenerator, name="ncsnpp")

@@ -40,6 +40,23 @@ through every kernel, through K4 alone (the others plain, so the
 difference is K4's) and through K1 alone, each against the same sample
 with every plain version forced (what the smoke holds to
 ``INT8_SAMPLE_TOL``), and the int8 sample against the bf16 one.
+
+With ``--branch B1`` or ``--branch B2`` (``chip_smoke.BRANCHES``: the
+one-AdaGN generator with the output_skip and input_skip pyramids; the
+ddpm one with the residual pyramids), the same recipe width with that
+branch's flags, for each seed: the sample and the int8 samples as above,
+each also with K1 through its kernel at the Cout = 1 convs alone and
+everywhere but there (B1's Cout = 1 convs are its output pyramid's), the
+int8 dynamic sample also under the K1 faults; and one D (R1) + G
+iteration (batch 2, bf16, ``attn="flash"``) through every kernel, K1
+alone, K2 alone, K3 alone (forward and backward) and the plain versions
+with TF32 allowed and with cuDNN's heuristic algorithms (controls with
+no kernel), each against the iteration with every plain version forced
+and against the fp32 one: the largest
+relative gradient error over the tensors the smoke holds
+(``chip_smoke.grad_errors``), the tensor nearest its limit in the smoke
+and each stem conv's.  Their readings set ``BRANCH_TOL`` and ``SPREAD``
+in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -55,7 +72,7 @@ import chip_smoke as smoke
 
 FAULTS = (0.005, 0.02, 0.08)
 K1_FAULTS = (0.02, 0.08)
-KERNEL_MODULES = ("conv3x3", "fir", "flash_attn", "int8_conv")
+BRANCH_NAMES = {"B1": "B1 pyramid", "B2": "B2 ddpm"}
 
 
 @contextlib.contextmanager
@@ -69,22 +86,6 @@ def attention_as(fn):
         yield
     finally:
         blocks.flash_attn = saved
-
-
-@contextlib.contextmanager
-def kernels_only(*names):
-    """Every wrapper whose kernel is not in ``names`` runs its plain
-    version, on CUDA tensors too."""
-    saved = {m: m.use_kernel for m in (sys.modules[f"mudiff_torch.ops.{k}"]
-                                        for k in KERNEL_MODULES)}
-    for m, real in saved.items():
-        m.use_kernel = (lambda name, key, *tensors, real=real:
-                        real(name, key, *tensors) and name in names)
-    try:
-        yield
-    finally:
-        for m, real in saved.items():
-            m.use_kernel = real
 
 
 def head_weight_scaled(eps: float):
@@ -112,6 +113,34 @@ def k1_head_fault(fault):
         yield
     finally:
         mod._conv = real
+
+
+@contextlib.contextmanager
+def k1_at_head(only: bool):
+    """K1 through its kernel only in the convs with Cout = 1 (``only``;
+    B1's three pyramid convs of each generator, else the head) or only
+    in the others (not ``only``); every other kernel plain."""
+    mod = sys.modules["mudiff_torch.ops.conv3x3"]
+    real = mod._conv
+
+    def routed(x, w, bias):
+        if (w.shape[-1] == 1) == only:
+            return real(x, w, bias)
+        return mod.conv3x3_plain(x, w, bias)
+
+    mod._conv = routed
+    try:
+        with smoke.kernels_only("conv3x3"):
+            yield
+    finally:
+        mod._conv = real
+
+
+def branch_variants() -> dict:
+    """{label: context} read on a branch's samples beyond the recipe's:
+    K1 at the Cout = 1 convs alone and everywhere but there."""
+    return {"K1 at Cout = 1 alone": lambda: k1_at_head(True),
+            "K1 except at Cout = 1": lambda: k1_at_head(False)}
 
 
 def k1_faults() -> dict:
@@ -175,7 +204,7 @@ def k1_per_shape_check(fault, dtype: str) -> dict:
             "rejected": bool((err > atol + rtol * want.abs()).any())}
 
 
-def sample_readings(cfg, sampler, seed: int, card: str) -> dict:
+def sample_readings(cfg, sampler, seed: int, card: str, extra: dict | None = None) -> dict:
     """The main path's sample (chip_smoke's phase 8 on this seed's
     weights, conditions and noise) under each variant, against the same
     sample with every plain version forced: max abs difference."""
@@ -193,9 +222,10 @@ def sample_readings(cfg, sampler, seed: int, card: str) -> dict:
     with ops.plain_kernels():
         ref = sampler(*conds, x_init=x_init, noise=noise)
     variants = {"sample: kernels": contextlib.nullcontext,
-                "sample: K1 alone": lambda: kernels_only("conv3x3"),
+                "sample: K1 alone": lambda: smoke.kernels_only("conv3x3"),
                 **{f"sample: {label}": (lambda fault=fault: k1_head_fault(fault))
-                   for label, fault in k1_faults().items()}}
+                   for label, fault in k1_faults().items()},
+                **{f"sample: {label}": context for label, context in (extra or {}).items()}}
     out = {}
     for label, context in variants.items():
         ops.reset_launch_counts()
@@ -208,11 +238,13 @@ def sample_readings(cfg, sampler, seed: int, card: str) -> dict:
     return out
 
 
-def int8_sample_readings(cfg, sampler, seed: int, card: str) -> dict:
+def int8_sample_readings(cfg, sampler, seed: int, card: str,
+                         extra: dict | None = None) -> dict:
     """The int8 leg's samples on this seed's weights, conditions and
-    noise, in both modes, under each variant against the same sample with
-    every plain version forced: max abs difference; and the int8 sample
-    against the bf16 one."""
+    noise, in both modes, under each variant (and, with dynamic scales,
+    each of ``extra``) against the same sample with every plain version
+    forced: max abs difference; and the int8 sample against the bf16
+    one."""
     import torch
 
     from mudiff_torch import ops
@@ -227,13 +259,14 @@ def int8_sample_readings(cfg, sampler, seed: int, card: str) -> dict:
     bf16 = sampler(*conds, x_init=x_init, noise=noise)
     dynamic, static, _ = smoke.int8_samplers(cfg, sampler, seed)
     variants = {"kernels": contextlib.nullcontext,
-                "K4 alone": lambda: kernels_only("int8_conv3x3"),
-                "K1 alone": lambda: kernels_only("conv3x3")}
+                "K4 alone": lambda: smoke.kernels_only("int8_conv3x3"),
+                "K1 alone": lambda: smoke.kernels_only("conv3x3")}
     out = {}
     for mode, s in (("dynamic", dynamic), ("static", static)):
         with ops.plain_kernels():
             ref = s(*conds, x_init=x_init, noise=noise)
-        for label, context in variants.items():
+        more = (extra or {}) if mode == "dynamic" else {}
+        for label, context in {**variants, **more}.items():
             ops.reset_launch_counts()
             with context():
                 got = s(*conds, x_init=x_init, noise=noise)
@@ -246,6 +279,129 @@ def int8_sample_readings(cfg, sampler, seed: int, card: str) -> dict:
         out[key] = {"max_abs": float((s(*conds, x_init=x_init, noise=noise) - bf16)
                                      .abs().max())}
         print(json.dumps({"card": card, "seed": seed, "variant": key, **out[key]}), flush=True)
+    return out
+
+
+def iteration_readings(cfg, seed: int, card: str) -> dict:
+    """One D (R1) + G iteration on this seed's weights, batch and draws,
+    in bf16 through every kernel, K1 alone, K2 alone and K3 alone, and
+    through the plain versions with TF32 allowed and with cuDNN's
+    heuristic algorithms (no kernel: the summation order moves, as K1's
+    does), each against the bf16 iteration with every plain version
+    forced and against the fp32 one (the plain versions, TF32 off): the
+    largest relative gradient error over the tensors the smoke holds
+    (``chip_smoke.grad_errors``), its tensor, the tensor nearest the limit
+    ``chip_smoke.compare_iteration`` gives it, each stem conv's error (the
+    generators' first, 1-channel convs) and every tensor's
+    (``per_tensor``, in the ``--out`` file)."""
+    import torch
+
+    from mudiff_torch.train import TrainDraws, create_train_state
+
+    state = create_train_state(cfg, seed=seed, device=smoke.DEVICE, attn="flash")
+    g = torch.Generator(smoke.DEVICE).manual_seed(seed + 50)
+    for module in (state.g1, state.g2, state.d):
+        smoke.randomize_(module, g)
+    shape = (smoke.TRAIN_BATCH, smoke.IMAGE, smoke.IMAGE, 1)
+    batch = [torch.randn(shape, generator=g, device=smoke.DEVICE).tanh() for _ in range(4)]
+    draws = tuple(TrainDraws.draw(cfg, batch[3], g) for _ in range(2))
+    state32 = smoke.fp32_copy(cfg, state)
+    _, exact, _ = smoke.iteration_grads(state32, batch, draws, plain=True)
+    del state32
+    _, ref, _ = smoke.iteration_grads(state, batch, draws, plain=True)
+    held, _ = smoke.grad_errors(ref, ref, exact)
+    rounding = {n: smoke.rel_err(ref[n], exact[n]) for n in held}
+    limit = {n: max(smoke.TRAIN_TOL["bf16"][1], smoke.SPREAD * d) for n, d in rounding.items()}
+    stems = [n for n in held if ".encoder_" in n and n.endswith(".conv1.weight")
+             or n.endswith("pseudo_gap.conv1.weight")]
+
+    def reading(grads, against_plain: bool) -> dict:
+        out = {}
+        for name, base in (("vs_plain", ref), ("vs_fp32_plain", exact)):
+            if name == "vs_plain" and not against_plain:
+                continue
+            errors = {n: smoke.rel_err(grads[n], base[n]) for n in held}
+            worst = max(errors, key=errors.get)
+            out[name] = {"max_grad_rel_err": errors[worst], "worst_tensor": worst,
+                         "median": sorted(errors.values())[len(errors) // 2],
+                         "stems": {n: errors[n] for n in stems}, "per_tensor": errors}
+            if name == "vs_plain":
+                nearest = max(errors, key=lambda n: errors[n] / limit[n])
+                out[name]["nearest_its_limit"] = {"tensor": nearest, "err": errors[nearest],
+                                                  "limit": limit[nearest]}
+        return out
+
+    variants = {"kernels": contextlib.nullcontext,
+                "K1 alone": lambda: smoke.kernels_only("conv3x3"),
+                "K2 alone": lambda: smoke.kernels_only("fir_down2", "fir_up2"),
+                "K3 alone": lambda: smoke.kernels_only("flash_attn", "flash_attn_bwd_dkv",
+                                                       "flash_attn_bwd_dq"),
+                "plain, TF32 allowed": tf32_allowed,
+                "plain, cuDNN's heuristic algorithms": cudnn_heuristics}
+    out = {"iteration: plain": reading(ref, False)}
+    out["iteration: plain"]["tensors_held"] = len(held)
+
+    def show(key):
+        brief = {k: ({kk: vv for kk, vv in v.items() if kk != "per_tensor"}
+                     if isinstance(v, dict) and "per_tensor" in v else v)
+                 for k, v in out[key].items()}
+        print(json.dumps({"card": card, "seed": seed, "variant": key, **brief}), flush=True)
+
+    show("iteration: plain")
+    for label, context in variants.items():
+        with context():
+            _, grads, launches = smoke.iteration_grads(
+                state, batch, draws, plain=label.startswith("plain"))
+        key = f"iteration: {label}"
+        out[key] = {**reading(grads, True), "launches": launches}
+        out[key]["max_grad_rel_err"] = out[key]["vs_plain"]["max_grad_rel_err"]
+        show(key)
+    return out
+
+
+@contextlib.contextmanager
+def cudnn_heuristics():
+    """cuDNN's heuristic choice of algorithm, not the timed one: another
+    summation order at the same precision."""
+    import torch
+
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def branch_readings(cfg, seed: int, card: str) -> dict:
+    """A branch configuration's sample, int8 samples and iteration."""
+    import torch
+
+    from mudiff_torch import build_sampler
+
+    sampler = build_sampler(cfg, device=smoke.DEVICE,
+                            generator=torch.Generator().manual_seed(seed))
+    wgen = torch.Generator(smoke.DEVICE).manual_seed(seed)
+    smoke.randomize_(sampler.g1, wgen)
+    smoke.randomize_(sampler.g2, wgen)
+    out = sample_readings(cfg, sampler, seed, card, branch_variants())
+    faults = {label: (lambda fault=fault: k1_head_fault(fault))
+              for label, fault in k1_faults().items()}
+    out.update(int8_sample_readings(cfg, sampler, seed, card, {**branch_variants(), **faults}))
+    del sampler
+    out.update(iteration_readings(cfg, seed, card))
     return out
 
 
@@ -267,7 +423,7 @@ def seed_readings(cfg, seed: int, card: str, flags=(), int8: bool = False) -> di
     mid = smoke.VOLUME_SHAPE[2] // 2
     band = slice(mid - smoke.VOLUME_HALF, mid + smoke.VOLUME_HALF + 1)
     variants = {"kernels": contextlib.nullcontext,
-                "K1 alone": lambda: kernels_only("conv3x3"),
+                "K1 alone": lambda: smoke.kernels_only("conv3x3"),
                 "K3 plain": lambda: attention_as(flash_attn_plain),
                 **{f"K3 scale x (1 + {eps})": (lambda eps=eps: attention_as(scaled_kernel(eps)))
                    for eps in FAULTS},
@@ -300,6 +456,8 @@ def main(argv=None) -> int:
                        help="serve in fp32 (--no_bf16) instead of bf16")
     modes.add_argument("--int8", action="store_true",
                        help="read the int8 leg's samples (W8A8, dynamic and static scales)")
+    modes.add_argument("--branch", choices=sorted(BRANCH_NAMES),
+                       help="read a branch configuration's samples and iteration")
     parser.add_argument("--out", help="also write every reading here")
     args = parser.parse_args(argv)
 
@@ -318,15 +476,27 @@ def main(argv=None) -> int:
     print(card, flush=True)
     _build.build()
     cfg = brats_recipe(num_channels_dae=smoke.NF, image_size=smoke.IMAGE)
-    if args.int8:
-        readings = {seed: seed_readings(cfg, seed, card, int8=True) for seed in args.seeds}
-        summary = {label: [readings[s][label]["max_abs"] for s in args.seeds]
-                   for label in readings[args.seeds[0]]}
+    if args.int8 or args.branch:
+        if args.branch:
+            cfg = cfg.replace(**smoke.BRANCHES[BRANCH_NAMES[args.branch]])
+            readings = {seed: branch_readings(cfg, seed, card) for seed in args.seeds}
+        else:
+            readings = {seed: seed_readings(cfg, seed, card, int8=True) for seed in args.seeds}
+        first = readings[args.seeds[0]]
+        summary = {label: [readings[s][label].get("max_abs",
+                                                  readings[s][label].get("max_grad_rel_err"))
+                           for s in args.seeds]
+                   for label in first if label != "iteration: plain"}
+        summary.update({f"{label} vs fp32 plain": [
+            readings[s][label]["vs_fp32_plain"]["max_grad_rel_err"] for s in args.seeds]
+            for label in first if "vs_fp32_plain" in first[label]})
+        head = {"card": card, "dtype": "bf16 and int8" if args.branch else "int8",
+                "branch": args.branch}
         if args.out:
             with open(args.out, "w") as f:
-                json.dump({"card": card, "dtype": "int8", "readings": readings}, f, indent=1)
-        print(json.dumps({"card": card, "dtype": "int8", "seeds": args.seeds,
-                          "max_abs_by_variant": summary}), flush=True)
+                json.dump({**head, "readings": readings}, f, indent=1)
+        print(json.dumps({**head, "seeds": args.seeds, "max_abs_by_variant": summary}),
+              flush=True)
         return 0
     dtype = "fp32" if args.fp32 else "bf16"
     faults = {eps: per_shape_check(eps, dtype) for eps in (0.0, *FAULTS)}
