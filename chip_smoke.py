@@ -116,7 +116,8 @@ ends the run with a non-zero exit code:
    torch.profiler (device time by kernel, the device's idle share), then
    one batch-8 sample of the volume phase's sampler (--attn flash) too;
 12. every kernel must have launched in 3, 4 or 6, each in 7, K1, K2 and
-   K4 in 8's CLI runs, K1-K3 in its remat table and each in 14; the
+   K4 in 8's CLI runs, K1-K3 in its remat table, each in 14 and K1,
+   K2a, K2b and K4 in 15; the
    kernels summed
    over the volume phase's, the training phase's, the int8 leg's, the
    train-loop phase's and phase 8's two runs' launches, then the
@@ -133,7 +134,12 @@ ends the run with a non-zero exit code:
    warn_only=True)`` and ``cudnn.deterministic``: every op that warned is
    printed; with none the synced gradients and the losses must be the
    plain iteration's bits, else within MESH_FLOOR_FACTOR x the floor two
-   plain runs give; (b) ``python -m torch.distributed.run --standalone
+   plain runs give; the G step's resize backward repeated under the
+   defaults through ``F.interpolate`` and through ``bilinear_resize``
+   (distinct results each); the plain step twice under PyTorch's
+   defaults, with the port's steps (cuDNN deterministic inside them), with
+   cuDNN's choice free, and with it free under the deterministic
+   algorithms (the tensors that repeat under each); (b) ``python -m torch.distributed.run --standalone
    --nproc_per_node=1`` (torchrun) of the train CLI on 7's split at its
    recipe for one epoch, counted inside the launched process (this
    script's ``--torchrun-train`` mode calls the CLI's ``main``), which
@@ -164,6 +170,20 @@ ends the run with a non-zero exit code:
    split and the test CLI (int8) on its checkpoint.  Every run counted
    against the structure; the ``branch_phase_kernels`` line sums each
    kernel over the phase's launches.
+15. (run after 14, in its work directory) the phantom quality
+   protocol's tools through the port's CLIs, under PyTorch's default
+   cuDNN settings: ``python -m mudiff_torch.data.phantom`` on
+   PHANTOM_PATIENTS patients of PHANTOM_DEPTH slices at 256² (8 / 2 / 2
+   slices), ``run -e flagship64 --train-only`` on
+   ``phantom_quality.write_yaml``'s copy of
+   ``experiments/phantom_flagship.yaml`` for one epoch (one iteration at
+   batch 8, nf=64, bf16, no remat, then its validation and preview),
+   ``calibrate_int8`` and ``ab_int8_quality`` in each mode (``bf16``,
+   ``int8``, ``int8-static``; ``--lpips_rand``).  Each run counted
+   against the structure (K4 on its fused path only); each leg's PNG
+   pairs and finite metrics; the ``phase15_kernels`` line sums each
+   kernel over the phase's launches, which the per-shape rows of 9 hold
+   too.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 ``mudiff_torch`` package is not beside the script.  ``--out`` also
@@ -237,6 +257,16 @@ RUN_NF = 128  # the experiment's width, held before the run
 RUN_EPOCHS = 1
 RUN_CALIB_BATCHES = 2
 WRAPPER_HALF = 4
+# Phase 15: the phantom protocol's tools (phantom_quality.py) on a tiny
+# set, PHANTOM_PATIENTS patients of PHANTOM_DEPTH slices at IMAGE (a 4 / 1
+# / 1 patient split: 8 / 2 / 2 slices), PHANTOM_EXPERIMENT of
+# experiments/phantom_flagship.yaml (nf=64, batch 8, bf16, no remat) for
+# PHANTOM_EPOCHS epoch: one iteration.
+PHANTOM_EXPERIMENT = "flagship64"
+PHANTOM_PATIENTS = 6
+PHANTOM_DEPTH = 2
+PHANTOM_EPOCHS = 1
+PHANTOM_SPLIT = {"train": 8, "val": 2, "test": 2}
 # The remat table at the same width and batch: (leg, policy, attention).
 # Each leg's gradients (one D (R1) + G iteration at the same weights and
 # draws) are held against the no-remat leg of its attention at
@@ -253,6 +283,7 @@ REMAT_ITERS = 3
 MESH_FLOOR_FACTOR = 2.0
 MESH_CLI_TIMEOUT = 480
 MESH_TIMED = 4  # timed iterations of phase 13's step, each way
+RESIZE_REPEATS = 8  # backward runs of each resize in phase 13's isolation
 # the meshes whose collective bytes phase 13 works out (it cannot run them)
 MESH_SHAPES = ((2, 1), (4, 1), (8, 1), (1, 2), (1, 4), (2, 2))
 
@@ -1086,7 +1117,7 @@ SOURCES = {
 # int8 leg runs (its sampler run).
 PATHS = ("launches", "volume_launches", "train_launches", "int8_launches",
          "int8_volume_launches", "loop_launches", "run_launches", "remat_launches",
-         "branch_launches")
+         "branch_launches", "phantom_launches")
 COUNTED_IN = {"flash_attn": "volume_launches", "flash_attn_bwd_dkv": "train_launches",
               "flash_attn_bwd_dq": "train_launches", "int8_conv3x3": "int8_launches"}
 
@@ -1104,6 +1135,11 @@ def shape_counts(logs: dict) -> dict:
 
 def run_of(path: str) -> str:
     """The run whose launches the count ``path`` holds."""
+    if path == "phantom_launches":
+        return (f"phase 15's runs on a {PHANTOM_PATIENTS}-patient phantom set: run -e "
+                f"{PHANTOM_EXPERIMENT} ({PHANTOM_EPOCHS} epoch of one iteration at batch 8, "
+                "its validation and preview), calibrate_int8, and ab_int8_quality's bf16, "
+                "int8 and int8-static legs")
     if path == "branch_launches":
         return (f"phase 14's runs of the model branches at nf={NF}: B1 and B2 each "
                 f"{REQUESTS} requests and one W8A8 request of batch {BATCH} (attn flash), "
@@ -1729,9 +1765,10 @@ def write_patients(root: str, seed: int) -> None:
             os.remove(path)
 
 
-def loop_structure(cfg) -> dict:
+def loop_structure(cfg, attn: str = "flash") -> dict:
     """Kernel launches of one training iteration with and without R1, and
-    of one sampling call (--attn flash), from the module structure."""
+    of one sampling call (``attn``, by default flash), from the module
+    structure."""
     from types import SimpleNamespace
 
     import torch
@@ -1740,14 +1777,14 @@ def loop_structure(cfg) -> dict:
     from mudiff_torch.train import TrainState
 
     with torch.device("meta"):
-        g1, g2 = (NCSNppGenerator(cfg, adaptive=a, attn="flash", device="meta")
+        g1, g2 = (NCSNppGenerator(cfg, adaptive=a, attn=attn, device="meta")
                   for a in (False, True))
         d = DiscriminatorLarge(ngf=cfg.ngf, t_emb_dim=cfg.t_emb_dim, device="meta")
     modules = SimpleNamespace(g1=g1, g2=g2, d=d)  # what the method reads
     return {"r1": TrainState.kernel_launches_per_iteration(modules, True),
             "no_r1": TrainState.kernel_launches_per_iteration(modules, False),
-            "sample": structure_launches(cfg, "flash"),
-            "sample_int8": structure_launches(cfg.replace(use_int8=True), "flash")}
+            "sample": structure_launches(cfg, attn),
+            "sample_int8": structure_launches(cfg.replace(use_int8=True), attn)}
 
 
 def combine(parts) -> dict:
@@ -2059,14 +2096,20 @@ def mesh_step_check(card) -> dict:
     ``torch.use_deterministic_algorithms(True, warn_only=True)`` and
     ``cudnn.deterministic``; every op that warned is printed, beside what
     three controls that PyTorch has flagged give (``histc`` forward,
-    ``grid_sample``'s and a bilinear resize's backward through
+    ``grid_sample``'s and ``F.interpolate``'s bilinear backward through
     ``autograd.grad``: whether the warnings are caught).  With no
     warning the mesh leg must be the plain leg's bits; else it must lie
-    within MESH_FLOOR_FACTOR x the floor the two plain legs give.  Then
-    MESH_TIMED iterations of each, plain and mesh in turns; then the plain
-    one twice apart and MESH_TIMED times under PyTorch's defaults, under
-    ``cudnn.deterministic`` alone and under the deterministic algorithms
-    alone (which setting makes its bits repeat): wall medians."""
+    within MESH_FLOOR_FACTOR x the floor the two plain legs give.  The op
+    isolated: the G step's resize backward at its shape, RESIZE_REPEATS
+    times under the defaults through ``F.interpolate`` (atomics) and
+    through ``bilinear_resize`` (matrix products): the distinct results.
+    Then MESH_TIMED iterations of each, plain and mesh in turns; then the
+    plain one twice apart and MESH_TIMED times under PyTorch's defaults
+    with the port's steps (``deterministic_cudnn`` inside them), with
+    cuDNN's choice left free (``cudnn_left_free``), and so under the
+    deterministic algorithms (which setting makes its bits
+    repeat, at what cost): wall medians, and a line with the tensors that
+    repeat under each."""
     import socket
     import warnings
     from datetime import timedelta
@@ -2149,14 +2192,37 @@ def mesh_step_check(card) -> dict:
             "histc": lambda: torch.histc(x.detach(), bins=10),
             "grid_sample backward": lambda: torch.autograd.grad(
                 F.grid_sample(x.permute(0, 3, 1, 2), grid, align_corners=False).sum(), x),
-            "bilinear resize backward": lambda: torch.autograd.grad(
-                bilinear_resize(x, (64, 64)).square().sum(), x)}
+            "F.interpolate bilinear backward": lambda: torch.autograd.grad(
+                F.interpolate(x.permute(0, 3, 1, 2), size=(64, 64), mode="bilinear",
+                              align_corners=False).square().sum(), x)}
         control = {}
         for name, fn in controls.items():
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 fn()
             control[name] = flagged(caught)
+        # the op isolated: the G step's resize of the critic's (B, 32, 32, 1)
+        # bf16 map to 256^2, backward RESIZE_REPEATS times under the defaults,
+        # through F.interpolate and through bilinear_resize's matrix products
+        torch.use_deterministic_algorithms(False)
+        resizes = {"F.interpolate": lambda a: F.interpolate(
+            a.permute(0, 3, 1, 2), size=(IMAGE, IMAGE), mode="bilinear",
+            align_corners=False).permute(0, 2, 3, 1), "bilinear_resize":
+            lambda a: bilinear_resize(a, (IMAGE, IMAGE))}
+        rgen = torch.Generator(DEVICE).manual_seed(SEED + 93)
+        xr = torch.rand((cfg.batch_size, 32, 32, 1), generator=rgen, device=DEVICE)
+        xr = xr.to(torch.bfloat16).requires_grad_(True)
+        cot = torch.randn((cfg.batch_size, IMAGE, IMAGE, 1), generator=rgen,
+                          device=DEVICE).to(torch.bfloat16)
+        resize_repeats = {}
+        for name, fn in resizes.items():
+            outs = [torch.autograd.grad(fn(xr), xr, cot)[0] for _ in range(RESIZE_REPEATS)]
+            resize_repeats[name] = {
+                "runs": RESIZE_REPEATS,
+                "distinct_results": len({o.float().cpu().numpy().tobytes() for o in outs}),
+                "max_abs_spread": max(float((o.float() - outs[0].float()).abs().max())
+                                      for o in outs)}
+        torch.use_deterministic_algorithms(True, warn_only=True)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             a_losses, a_grads, a_s = leg(plain)
@@ -2169,28 +2235,37 @@ def mesh_step_check(card) -> dict:
         timed = {"plain": [], "mesh": []}
         for tag in ("plain", "mesh", "mesh", "plain") * (MESH_TIMED // 2):
             timed[tag].append(leg(plain if tag == "plain" else ours)[2])
-        # which setting makes the step deterministic: two plain runs apart
+        # which setting makes the step deterministic: two plain runs apart,
+        # under PyTorch's defaults with the port's steps (cuDNN deterministic
+        # inside them) and with cuDNN's choice left free, alone and under the
+        # deterministic algorithms
         attribution = {}
-        for tag, algorithms, cudnn_det in (("defaults", False, False),
-                                           ("cudnn.deterministic only", False, True),
-                                           ("deterministic algorithms only", True, False)):
+        torch.backends.cudnn.deterministic = False
+        for tag, free, algorithms in (("the port's defaults", False, False),
+                                      ("cuDNN free", True, False),
+                                      ("cuDNN free, deterministic algorithms", True, True)):
             torch.use_deterministic_algorithms(algorithms, warn_only=True)
-            torch.backends.cudnn.deterministic = cudnn_det
-            first, second = leg(plain), leg(plain)
-            timed[f"plain, {tag}"] = [first[2], second[2]] + [
-                leg(plain)[2] for _ in range(MESH_TIMED - 2)]
+            with cudnn_left_free() if free else contextlib.nullcontext():
+                first, second = leg(plain), leg(plain)
+                timed[f"plain, {tag}"] = [first[2], second[2]] + [
+                    leg(plain)[2] for _ in range(MESH_TIMED - 2)]
             attribution[tag] = grad_distance(tag, second[1], second[0], first[1], first[0])
             del first, second
         result = {"card": card, "phase": "distributed step (NCCL, world size 1)",
                   "backend": backend, "nf": cfg.num_channels_dae, "batch": cfg.batch_size,
                   "remat": cfg.grad_checkpoint_policy, "dtype": "bf16", "attn": "flash",
                   "warned_ops": warned, "control_warned": control,
+                  "resize_backward_repeats": resize_repeats,
                   "mesh_vs_plain": vs_plain, "plain_vs_plain_floor": floor,
                   "floor_factor": MESH_FLOOR_FACTOR,
                   "leg_s": {"plain": a_s, "mesh": m_s, "plain again": b_s},
                   "plain_vs_plain_by_setting": attribution, "iteration_s": timed,
                   "iteration_s_median": {k: sorted(v)[len(v) // 2] for k, v in timed.items()}}
         print(json.dumps(result), flush=True)
+        print(json.dumps({"card": card, "phase": "determinism of the plain bf16 step",
+                          **{tag: f"{a['tensors_bit_identical']} of {a['tensors']} tensors, "
+                                  f"{a['losses_bit_identical']} of {a['losses']} losses"
+                             for tag, a in attribution.items()}}), flush=True)
         bits = (vs_plain["tensors_bit_identical"] == vs_plain["tensors"]
                 and vs_plain["losses_bit_identical"] == vs_plain["losses"])
         if not warned and not bits:
@@ -2201,11 +2276,34 @@ def mesh_step_check(card) -> dict:
                 raise AssertionError(f"mesh step vs plain step: {key} {vs_plain[key]:.3g} "
                                      f"beyond {MESH_FLOOR_FACTOR} x the plain floor "
                                      f"{floor[key]:.3g}")
+        if resize_repeats["bilinear_resize"]["distinct_results"] != 1:
+            raise AssertionError("bilinear_resize's backward does not repeat its bits: "
+                                 f"{resize_repeats['bilinear_resize']}")
+        ours_twice = attribution["the port's defaults"]
+        if (ours_twice["tensors_bit_identical"] != ours_twice["tensors"]
+                or ours_twice["losses_bit_identical"] != ours_twice["losses"]):
+            raise AssertionError("the plain bf16 step does not repeat its bits under the "
+                                 f"port's defaults: {ours_twice}")
         return result
     finally:
         torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
         mesh.close()
+
+
+@contextlib.contextmanager
+def cudnn_left_free():
+    """The port's training steps with cuDNN's choice of algorithm left
+    free: ``steps.deterministic_cudnn`` made a no-op while open (what the
+    steps cost and give without it)."""
+    from mudiff_torch.train import steps
+
+    saved = steps.deterministic_cudnn
+    steps.deterministic_cudnn = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        steps.deterministic_cudnn = saved
 
 
 def torchrun_train(out_path: str, argv) -> int:
@@ -2988,6 +3086,118 @@ def branch_phase(card, work: str) -> dict:
     return {"launches": totals, "log": log, **report}
 
 
+def phantom_phase(card, work: str) -> dict:
+    """Phase 15: the phantom quality protocol's tools through the port's
+    CLIs on a tiny set, under PyTorch's default cuDNN settings (as phase
+    8): ``python -m mudiff_torch.data.phantom`` (PHANTOM_PATIENTS patients
+    of PHANTOM_DEPTH slices at IMAGE), ``run -e flagship64 --train-only``
+    on ``phantom_quality.write_yaml``'s copy of the YAML for
+    PHANTOM_EPOCHS epoch (one iteration at batch 8, then its validation
+    and preview), ``calibrate_int8`` and ``ab_int8_quality`` in each of
+    the three modes (einsum attention, ``--lpips_rand``).  Every run is
+    counted (``phantom_launches``) against the module structure (K4 on its
+    fused path only); each leg's PNG pairs and finite metrics."""
+    import torch
+
+    saved = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        return _phantom_phase(card, work)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _phantom_phase(card, work: str) -> dict:
+    from mudiff_torch import ops
+    from mudiff_torch.cli import ab_int8_quality, calibrate_int8, run
+    from mudiff_torch.config import _config_from_yaml, load_experiment
+    from mudiff_torch.data import phantom
+    from phantom_quality import write_yaml
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "phantom")
+    npy = os.path.join(root, "npy")
+    log, launches, seconds, k4_paths = [], {}, {}, {}
+    zero = dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
+
+    def count(tag, fn, want):
+        out, got, seconds[tag] = counted(log, fn)
+        launches[tag] = got
+        if want is not None and got != {**zero, **want}:
+            raise AssertionError(f"phase 15 {tag}: launches {got} != structure's {want}")
+        if got["int8_conv3x3"]:
+            k4_paths[tag] = dict(ops.int8_conv3x3.path_launches)
+            if k4_paths[tag] != {"wgmma": got["int8_conv3x3"], "general": 0}:
+                raise AssertionError(f"phase 15 {tag}: K4 by path {k4_paths[tag]}")
+        return out
+
+    t = time.perf_counter()
+    split = phantom.main(["--output_dir", npy, "--n_patients", str(PHANTOM_PATIENTS),
+                          "--image_size", str(IMAGE), "--slices", str(PHANTOM_DEPTH),
+                          "--seed", str(SEED)])
+    seconds["phantom"] = time.perf_counter() - t
+    if split != PHANTOM_SPLIT:
+        raise AssertionError(f"phantom split {split} != {PHANTOM_SPLIT}")
+    path = write_yaml(root, npy, seed=1024, resume=False, epochs=PHANTOM_EPOCHS)
+    doc, exp = load_experiment(path, PHANTOM_EXPERIMENT)
+    args = (doc["data_path"], doc["output_root"], PHANTOM_EXPERIMENT, exp["target"])
+    tcfg = _config_from_yaml(exp["train_args"], *args)
+    test_cfg = _config_from_yaml(exp["test_args"], *args)
+    shipped = (tcfg.num_channels_dae, tcfg.batch_size, tcfg.use_grad_checkpoint,
+               tcfg.use_bf16, tcfg.image_size, tcfg.num_epoch, test_cfg.num_channels_dae)
+    if shipped != (NF, 8, False, True, IMAGE, PHANTOM_EPOCHS, NF):
+        raise AssertionError(f"{PHANTOM_EXPERIMENT} reads {shipped}")
+
+    # -- one epoch of one iteration (R1 on step 0), its validation and preview
+    struct = loop_structure(tcfg, "einsum")
+    res = count("run", lambda: run.main(["-c", path, "-e", PHANTOM_EXPERIMENT,
+                                         "--train-only"]),
+                combine([(1, struct["r1"]), (2, struct["sample"])]))
+    if len(res["train"]["timings"]["iteration_s"]) != 1 or res["train"]["r1_steps"] != [0]:
+        raise AssertionError(f"run trained {res['train']['timings']['iteration_s']}, "
+                             f"R1 on {res['train']['r1_steps']}")
+    exp_dir = res["exp_dir"]
+    need = {"content.pt", "gen_diffusive_1.pt", "gen_diffusive_2.pt",
+            "training_history.json"}
+    if not need <= set(os.listdir(exp_dir)):
+        raise AssertionError(f"run: missing {sorted(need - set(os.listdir(exp_dir)))}")
+
+    # -- the static calibration (the CLI's defaults: one batch of the 2 val slices)
+    cal = count("calibrate", lambda: calibrate_int8.main(["-c", path, "-e",
+                                                          PHANTOM_EXPERIMENT]), None)
+    if not launches["calibrate"]["int8_conv3x3"]:
+        raise AssertionError(f"calibrate_int8 launches {launches['calibrate']}")
+    sites = [len(c.sites) for c in cal["calibs"]]
+
+    # -- the A/B, one mode a call, so each leg is counted apart
+    rows = {}
+    for mode in ab_int8_quality.MODES:
+        cfg = test_cfg.replace(use_int8=mode != "bf16")
+        want = structure_launches(cfg, "einsum")  # one batch of 8: the 2 test slices
+        out = count(mode, lambda: ab_int8_quality.main(
+            ["-c", path, "-e", PHANTOM_EXPERIMENT, "--out", os.path.join(root, "ab"),
+             "--modes", mode, "--lpips_rand"]), want)[PHANTOM_EXPERIMENT]
+        row, dirs = out["ab"][mode], out["dirs"][mode]
+        pngs = [sorted(f for f in os.listdir(dirs[k]) if f.endswith(".png"))
+                for k in ("pred_dir", "gt_dir")]
+        if [len(p) for p in pngs] != [PHANTOM_SPLIT["test"]] * 2:
+            raise AssertionError(f"ab {mode}: PNG pairs {pngs}")
+        if not all(math.isfinite(v) for v in row.values()) or "lpips_rand" not in row:
+            raise AssertionError(f"ab {mode}: {row}")
+        if any(not launches[mode][k] for k in ("conv3x3", "fir_down2", "fir_up2")) or \
+                bool(launches[mode]["int8_conv3x3"]) != (mode != "bf16"):
+            raise AssertionError(f"ab {mode}: launches {launches[mode]}")
+        rows[mode] = row
+    totals = combine([(1, c) for c in launches.values()])
+    seconds["phase"] = time.perf_counter() - t_phase
+    report = {"card": card, "phase": "phantom protocol tools", "split": split,
+              "experiment": PHANTOM_EXPERIMENT, "epochs": PHANTOM_EPOCHS,
+              "calibration_sites": sites, "ab": rows, "launch_counts": launches,
+              "k4_path_launches": k4_paths, "seconds": seconds}
+    print(json.dumps(report), flush=True)
+    return {"launches": totals, "log": log, **report}
+
+
 PROFILE_GROUPS = (
     ("K1 conv3x3", ("conv3x3_kernel",)),
     ("K2a fir_down2", ("fir_down2_kernel",)),
@@ -3148,13 +3358,16 @@ def main(argv=None) -> int:
         distp = distributed_phase(cfg, card, work, loop)
         # -- the model branches off the recipe, at the serving width ------------
         branch = branch_phase(card, work)
+        # -- the phantom quality protocol's tools through the CLIs ---------------
+        phantomp = phantom_phase(card, work)
 
     counts = shape_counts({"launches": log, "volume_launches": volume["log"],
                            "train_launches": train["log"], "int8_launches": int8["log"],
                            "int8_volume_launches": volume["int8_log"],
                            "loop_launches": loop["log"], "run_launches": runp["log"],
                            "remat_launches": runp["remat_log"],
-                           "branch_launches": branch["log"]})
+                           "branch_launches": branch["log"],
+                           "phantom_launches": phantomp["log"]})
     fir_shapes = {(kname, *key, 0): c for kname in ("fir_down2", "fir_up2")
                   for key, c in counts[kname].items()}
     fir_shapes.update({(kname, shape, torch.bfloat16, offset): dict.fromkeys(PATHS, 0)
@@ -3261,6 +3474,13 @@ def main(argv=None) -> int:
     on_branch = [kernel_summary(k, rows, branch["launches"][k], "branch_launches")
                  for k in ops.KERNEL_WRAPPERS if branch["launches"][k]]
     print(json.dumps({"card": card, "branch_phase_kernels": on_branch}), flush=True)
+    on_phantom = [kernel_summary(k, rows, phantomp["launches"][k], "phantom_launches")
+                  for k in ops.KERNEL_WRAPPERS if phantomp["launches"][k]]
+    idle = [k for k in ("conv3x3", "fir_down2", "fir_up2", "int8_conv3x3")
+            if not phantomp["launches"][k]]
+    if idle:
+        raise AssertionError(f"phase 15 never launched {idle}")
+    print(json.dumps({"card": card, "phase15_kernels": on_phantom}), flush=True)
     kernels = [kernel_summary(k, rows, counted[k]) for k in ops.KERNEL_WRAPPERS]
     if args.out:
         with open(args.out, "w") as f:
@@ -3268,7 +3488,8 @@ def main(argv=None) -> int:
                        "volume_phase_kernels": on_volume, "training_phase_kernels": on_train,
                        "int8_leg_kernels": on_int8, "loop_phase_kernels": on_loop,
                        "run_phase_kernels": on_run, "remat_table_kernels": on_remat,
-                       "branch_phase_kernels": on_branch,
+                       "branch_phase_kernels": on_branch, "phase15_kernels": on_phantom,
+                       "phantom": {k: v for k, v in phantomp.items() if k != "log"},
                        "branch": {k: v for k, v in branch.items() if k != "log"},
                        "loop": {k: v for k, v in loop.items() if k != "log"},
                        "run": {k: v for k, v in runp.items() if k not in ("log", "remat_log")},

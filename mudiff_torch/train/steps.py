@@ -28,8 +28,14 @@ gradients.  Two quirks of the JAX package are kept:
   R1 pass is the real pass.  The port takes the penalty's gradient from
   the real pass itself: the same values, one critic forward less.
 * ``jax.image.resize(method="bilinear")`` upsampling 32 -> 256 is
-  ``F.interpolate(mode="bilinear", align_corners=False)``: half-pixel
-  centres, the edge value repeated.
+  ``F.interpolate(mode="bilinear", align_corners=False)``'s weights
+  (half-pixel centres, the edge value repeated), applied as two matrix
+  products so the backward is deterministic (``bilinear_resize``).
+
+The D and G steps compute their gradients with cuDNN restricted to its
+deterministic algorithms (``deterministic_cudnn``), and the resize is
+two matrix products, so a step repeats its bits on the card, as the JAX
+package's compiled step does.
 
 The random draws of each step (``TrainDraws``) come from a
 ``torch.Generator`` on the device or are injected.  With dropout they
@@ -59,9 +65,12 @@ kept activations, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -130,11 +139,35 @@ def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tenso
     return F.softplus(logits) - logits * targets
 
 
+@functools.lru_cache(maxsize=16)
+def _interpolation_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """(n_out, n_in) float32 weights of 1-D half-pixel linear
+    interpolation, as ``F.interpolate(align_corners=False)`` computes them:
+    source ``(i + 0.5) * n_in / n_out - 0.5`` clamped at 0, the edge sample
+    repeated."""
+    scale = np.float32(n_in / n_out)
+    src = np.maximum((np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * scale
+                     - np.float32(0.5), np.float32(0.0))
+    i0 = np.minimum(np.floor(src).astype(np.int64), n_in - 1)
+    lam = src - i0.astype(np.float32)
+    rows = np.arange(n_out)
+    m = np.zeros((n_out, n_in), np.float32)
+    np.add.at(m, (rows, i0), np.float32(1.0) - lam)
+    np.add.at(m, (rows, np.minimum(i0 + 1, n_in - 1)), lam)
+    return torch.from_numpy(m).to(device)
+
+
 def bilinear_resize(x: torch.Tensor, hw: Sequence[int]) -> torch.Tensor:
-    """(B, h, w, C) -> (B, H, W, C), half-pixel bilinear (upsampling)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
-                      align_corners=False)
-    return y.permute(0, 2, 3, 1)
+    """(B, h, w, C) -> (B, H, W, C), half-pixel bilinear (upsampling), in
+    fp32 and rounded once to ``x``'s dtype.
+
+    Two fixed interpolation-matrix products, H then W, so the forward and
+    the backward are matmuls and repeat their bits; the backward of
+    ``F.interpolate`` on the card accumulates with atomics."""
+    a_h = _interpolation_matrix(x.shape[1], int(hw[0]), x.device)
+    a_w = _interpolation_matrix(x.shape[2], int(hw[1]), x.device)
+    y = torch.matmul(torch.matmul(a_h, x.permute(0, 3, 1, 2).float()), a_w.t())
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -224,13 +257,29 @@ def g_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws
     return (grads[:len(p1)], grads[len(p1):]), {k: v.detach() for k, v in aux.items()}
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """While open, cuDNN picks among its deterministic algorithms only;
+    the previous setting comes back after.  cuDNN's heuristic
+    weight-gradient algorithm for some of the step's convs sums in a
+    varying order, so without it two runs of one bf16 step differ in a
+    few bits."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def make_d_step() -> Callable:
-    """``d_step(state, batch, draws, with_r1) -> losses``: gradients,
-    synced over the mesh, then Adam on D."""
+    """``d_step(state, batch, draws, with_r1) -> losses``: gradients
+    (under ``deterministic_cudnn``), synced over the mesh, then Adam on D."""
 
     def d_step(state: TrainState, batch: Batch, draws: TrainDraws,
                with_r1: bool) -> Dict[str, torch.Tensor]:
-        grads, aux = d_loss_and_grads(state, batch, draws, with_r1)
+        with deterministic_cudnn():
+            grads, aux = d_loss_and_grads(state, batch, draws, with_r1)
         state.apply_d_updates(state.sync_grads("d", grads))
         return average_scalars(aux, state.mesh)
 
@@ -238,11 +287,13 @@ def make_d_step() -> Callable:
 
 
 def make_g_step() -> Callable:
-    """``g_step(state, batch, draws) -> losses``: gradients, synced over
-    the mesh, then Adam on G1 and G2 and the EMA."""
+    """``g_step(state, batch, draws) -> losses``: gradients (under
+    ``deterministic_cudnn``), synced over the mesh, then Adam on G1 and G2
+    and the EMA."""
 
     def g_step(state: TrainState, batch: Batch, draws: TrainDraws) -> Dict[str, torch.Tensor]:
-        (grads_g1, grads_g2), aux = g_loss_and_grads(state, batch, draws)
+        with deterministic_cudnn():
+            (grads_g1, grads_g2), aux = g_loss_and_grads(state, batch, draws)
         state.apply_g_updates(state.sync_grads("g1", grads_g1),
                               state.sync_grads("g2", grads_g2))
         return average_scalars(aux, state.mesh)

@@ -1,5 +1,5 @@
-"""mudiff_torch stands alone: no JAX, no flax, nothing of mudiff_tpu,
-and none of the packages the card's machine lacks (PIL, matplotlib,
+"""mudiff_torch stands alone: no JAX, no flax, nothing of mudiff_tpu or
+``tools/``, and none of the packages the card's machine lacks (PIL, matplotlib,
 orbax, optax, yaml): the YAML runner reads its files with
 ``utils/yaml_lite.py``, the demo writes its PNG with ``utils/png.py``.
 
@@ -33,7 +33,7 @@ names = [m.name for m in pkgutil.walk_packages(mudiff_torch.__path__, "mudiff_to
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "mudiff_tpu", "PIL",
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "mudiff_tpu", "tools", "PIL",
                                     "matplotlib", "orbax", "optax", "yaml"))
 print(len(names), bad)
 assert len(names) >= 15, names
@@ -52,7 +52,8 @@ assert {"mudiff_torch.infer.volume", "mudiff_torch.infer.generators",
         "mudiff_torch.metrics.lpips", "mudiff_torch.cli.run",
         "mudiff_torch.cli.check_pipeline", "mudiff_torch.cli.calibrate_int8",
         "mudiff_torch.cli.metric_calc", "mudiff_torch.cli.predict_volume_wrapper",
-        "mudiff_torch.demo"} <= set(names), names
+        "mudiff_torch.demo", "mudiff_torch.data.phantom",
+        "mudiff_torch.cli.ab_int8_quality"} <= set(names), names
 assert not bad, bad
 """
 
@@ -70,7 +71,7 @@ def test_port_imports_no_jax_or_mudiff_tpu():
 
 
 @pytest.mark.parametrize("path", ["mudiff_torch", "chip_smoke.py", "volume_drift.py",
-                                  "k4_timeline.py"])
+                                  "k4_timeline.py", "phantom_quality.py", "int8_sites.py"])
 def test_sources_name_no_jax_import(path):
     files = [REPO / path] if path.endswith(".py") else sorted((REPO / path).rglob("*.py"))
     for f in files:
@@ -78,8 +79,8 @@ def test_sources_name_no_jax_import(path):
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 root = words[1].split(".")[0].rstrip(",")
-                assert root not in ("jax", "jaxlib", "flax", "mudiff_tpu", "PIL", "orbax",
-                                    "optax", "yaml"), f"{f}: {line}"
+                assert root not in ("jax", "jaxlib", "flax", "mudiff_tpu", "tools", "PIL",
+                                    "orbax", "optax", "yaml"), f"{f}: {line}"
                 if root == "matplotlib":  # only inside plot_evolution
                     assert f.name == "reports.py" and line.startswith("    "), f"{f}: {line}"
 

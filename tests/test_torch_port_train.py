@@ -21,6 +21,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mudiff_tpu import config as jconfig
 from mudiff_tpu.models import critic as jcritic
@@ -293,6 +294,39 @@ def test_bilinear_resize_matches_jax_image_resize():
     want = np.asarray(jax.image.resize(jnp.asarray(x), (2, 256, 256, 1), method="bilinear"))
     got = bilinear_resize(torch.from_numpy(x), (256, 256)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+def test_bilinear_resize_gradient_matches_jax_vjp():
+    rng = np.random.RandomState(1)
+    x = rng.rand(2, 32, 32, 1).astype(np.float32)
+    cot = rng.randn(2, 256, 256, 1).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jax.image.resize(a, (2, 256, 256, 1), method="bilinear"),
+                     jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(cot))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (got,) = torch.autograd.grad(bilinear_resize(xt, (256, 256)), xt, torch.from_numpy(cot))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,hw,dtype", [((2, 32, 32, 1), (256, 256), torch.float32),
+                                            ((1, 7, 5, 3), (16, 11), torch.float32),
+                                            ((2, 8, 8, 1), (64, 64), torch.bfloat16)])
+def test_bilinear_resize_is_f_interpolate(shape, hw, dtype):
+    """The matrix products give ``F.interpolate``'s values, forward and
+    backward, at ragged ratios and in bf16 (one rounding of the fp32 sum)."""
+    x = torch.from_numpy(np.random.RandomState(2).rand(*shape).astype(np.float32))
+    x = x.to(dtype).requires_grad_(True)
+    got = bilinear_resize(x, hw)
+    want = F.interpolate(x.float().permute(0, 3, 1, 2), size=hw, mode="bilinear",
+                         align_corners=False).permute(0, 2, 3, 1)
+    assert got.dtype == dtype
+    tol = 1e-6 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    cot = torch.from_numpy(np.random.RandomState(3).randn(*got.shape).astype(np.float32))
+    (g,) = torch.autograd.grad(got, x, cot.to(dtype))
+    (w,) = torch.autograd.grad(want, x, cot)
+    torch.testing.assert_close(g.float(), w.float(), atol=1e-5 if dtype == torch.float32
+                               else 0.1, rtol=1e-5 if dtype == torch.float32 else 2e-2)
 
 
 @pytest.mark.parametrize("over", [dict(use_grad_checkpoint=True, grad_checkpoint_policy="hires"),
