@@ -44,12 +44,14 @@ ends the run with a non-zero exit code:
 6. training: ``create_train_state`` + ``make_train_step`` at the same
    recipe, batch 2, bf16, ``attn="flash"``, seeded non-trivial weights
    (the critic too, off its zero-init head).  Four iterations on global
-   steps 0-3 (``lazy_reg`` 16: R1 on step 0), counted as in 3 against
+   steps 0-3 (``lazy_reg`` 16: R1 on step 0) under cuDNN's fixed choice
+   of algorithm (``fixed_cudnn``), counted as in 3 against
    ``kernel_launches_per_iteration``; finite losses, D, G1 and G2 changed,
    ``att_conv`` unchanged.  Then one D (with R1) + G iteration's losses
    and gradients through the kernels against the same iteration under
    ``plain_kernels()`` (same weights, injected draws), in bf16 and fp32,
-   within ``TRAIN_TOL``; best-of-N times of an iteration with and
+   both under ``fixed_cudnn``, within ``TRAIN_TOL`` (in bf16 G_mask by
+   its factors, ``MASK_TOL``); best-of-N times of an iteration with and
    without R1 and of the D and G steps, training slices/s, peak memory,
    and one iteration under torch.profiler;
 7. the training program and the slice test through their CLIs, at the
@@ -158,8 +160,8 @@ ends the run with a non-zero exit code:
    attention (K4's fused path only, its sample within ``BRANCH_TOL``'s,
    and with K4 alone through its kernel the plain versions' bits),
    best-of-2 and one profiled request, one counted bf16 training
-   iteration (R1) and one fp32 D (R1) + G iteration against the plain
-   versions (``TRAIN_TOL["fp32"]``); B3
+   iteration (R1) under ``fixed_cudnn`` and one D (R1) + G iteration
+   against the plain versions in bf16 and fp32 as in 6; B3
    (ddpm, ``fir=False``, Fourier, three-channel images, two conditions)
    runs G1 + G2 at t = 1, 2, 3 against the plain versions, and prints
    the t = 0 embedding's non-finite lanes (NaN by the reference's
@@ -339,6 +341,24 @@ FLASH_BWD_TOL = {"bf16": 2e-2, "fp32": 1e-4}
 TRAIN_TOL = {"fp32": (1e-4, 1e-3), "bf16": (2e-2, 5e-2)}
 TINY_GRAD = 1e-6
 SPREAD = 4.0
+# The mask loss G_mask = mean(att_g2 * bce_1) + mean(att_g1 * bce_2)
+# (``mask_terms``) is 1e-6 on phase 14's B2 weights: the attention logits
+# (att_conv of the critic's bf16 features) lie in -36 to -7, where
+# sigmoid(l) ~ e^l, so the loss's relative error is a mean of the logits'
+# absolute errors weighted to the largest, a fraction of bf16's spacing
+# there (0.0625-0.25).  TRAIN_TOL's 2e-2 asked more of it than bf16
+# resolves, and at fixed weights it read 1e-4 to 0.028 as cuDNN's choice
+# of algorithm moved (PERF.md §6).  So in bf16 the loss is held by
+# its two factors, each against what bf16 resolves at these weights (the
+# plain bf16 run's distance from the fp32 one, ``mask_ratios``): the
+# logits' mean |diff| in bf16 spacings, and each BCE factor's relative
+# error.  ``volume_drift.py --iteration`` read the sound kernels at most
+# 1.020 (logits) and 1.001 (BCE) over the recipe, B1 and B2 on seeds 0-5
+# (NVIDIA H100 80GB HBM3, 700.00 W); each limit is 1.5x that.  K1 with
+# tap (0, 0) dropped at the Cout = 1 convs read BCE 21.0-130, 14x over
+# its limit or more; its logits read 0.31-26.6: that fault moves the
+# posterior samples, and the critic's logits not always past bf16's noise.
+MASK_TOL = {"logits": 1.54, "bce": 1.51}
 
 # Published dense peaks of the card (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 CUDA-core FLOP/s, device-memory bytes/s; and the int8
@@ -1541,19 +1561,112 @@ def rel_err(g, ref) -> float:
     return float((g.float() - ref.float()).norm()) / max(float(ref.float().norm()), 1e-30)
 
 
-def compare_iteration(tag: str, state, batch, draws, exact: dict) -> dict:
-    """Kernels vs plain versions on one iteration, held to TRAIN_TOL[tag]
-    on the tensors ``grad_errors`` holds, ``exact`` being the fp32 plain
-    run's gradients; a gradient whose plain run lies a distance d from
-    ``exact`` is held to the larger of the tolerance and SPREAD * d."""
+@contextlib.contextmanager
+def fixed_cudnn():
+    """cuDNN's heuristic choice among its deterministic algorithms
+    (``benchmark`` off, ``steps.deterministic_cudnn``): the same
+    algorithms in every process, so a check on fixed weights reads the
+    same in every run.  The caller's settings come back after."""
+    import torch
+
+    from mudiff_torch.train.steps import deterministic_cudnn
+
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        with deterministic_cudnn():
+            yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+def mask_factors(state, batch, draws, plain: bool) -> dict:
+    """The G step's forward on ``draws[1]`` without a graph, through the
+    kernels or with the plain versions forced: its mask loss's factors
+    (``mask_terms``), the critic's features and the posterior samples."""
+    import torch
+
+    from mudiff_torch import ops
+    from mudiff_torch.train.steps import g_forward, mask_terms
+
+    with torch.no_grad(), ops.plain_kernels() if plain else contextlib.nullcontext():
+        fwd = g_forward(state, batch, draws[1])
+        terms = mask_terms(state.att_conv, fwd)
+    return {**{k: fwd[k] for k in ("pos_g1", "pos_g2", "feat_g1", "feat_g2")}, **terms}
+
+
+def bf16_spacing(x):
+    """bf16's spacing at each |x|, 2^(floor(log2 |x|) - 7), in float32."""
+    import torch
+
+    _, exponent = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exponent - 8)
+
+
+def mask_distance(got: dict, ref: dict) -> dict:
+    """How far ``got``'s mask factors lie from ``ref``'s (``mask_factors``):
+    both critic passes' attention logits in bf16 spacings (mean signed,
+    mean and max absolute difference; the share that differ; ``ref``'s
+    range), the relative errors of the BCE factors, the maps, the terms,
+    G_mask and the critic's features, and the posterior samples' max
+    absolute difference.  The spacing is one for all the logits, at
+    their mean magnitude: a logit near 0 is resolved no finer than its
+    neighbours, its error coming from the same bf16 features."""
+    import torch
+
+    logits = ("att_logit_g1", "att_logit_g2")
+    want = torch.cat([ref[k].float().flatten() for k in logits])
+    diff = torch.cat([got[k].float().flatten() for k in logits]) - want
+    units = diff / bf16_spacing(want.abs().mean())
+
+    def scalar_err(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+    return {"logit_mean_abs_spacings": float(units.abs().mean()),
+            "logit_mean_signed_spacings": float(units.mean()),
+            "logit_max_abs_spacings": float(units.abs().max()),
+            "logit_share_differing": float((diff != 0).float().mean()),
+            "logit_range": [float(want.min()), float(want.max())],
+            "bce_rel_err": max(rel_err(got[k], ref[k]) for k in ("bce_1", "bce_2")),
+            **{f"{k}_rel_err": rel_err(got[k], ref[k])
+               for k in ("bce_1", "bce_2", "att_g1", "att_g2")},
+            **{f"{k}_rel_err": scalar_err(got[k], ref[k]) for k in ("term_1", "term_2")},
+            "G_mask_rel_err": scalar_err(got["term_1"] + got["term_2"],
+                                         ref["term_1"] + ref["term_2"]),
+            "feat_rel_err": max(rel_err(got[k], ref[k]) for k in ("feat_g1", "feat_g2")),
+            "pos_max_abs": max(float((got[k].float() - ref[k].float()).abs().max())
+                               for k in ("pos_g1", "pos_g2"))}
+
+
+def mask_ratios(got: dict, rounding: dict) -> dict:
+    """``mask_distance`` readings of the kernels against the plain run
+    over the plain bf16 run's against the fp32 one: the logits' mean
+    |diff| and the larger of the two BCE factors' relative errors."""
+    def over(key):
+        return got[key] / max(rounding[key], 1e-30)
+
+    return {"logits": over("logit_mean_abs_spacings"),
+            "bce": max(over("bce_1_rel_err"), over("bce_2_rel_err"))}
+
+
+def iteration_verdict(tag: str, state, batch, draws, exact: dict, exact_mask: dict) -> dict:
+    """Kernels vs plain versions on one iteration (``compare_iteration``'s
+    readings), under ``fixed_cudnn``; ``failed`` lists the checks that
+    failed."""
     loss_tol, grad_tol = TRAIN_TOL[tag]
-    losses, grads, counts = iteration_grads(state, batch, draws, plain=False)
-    p_losses, p_grads, p_counts = iteration_grads(state, batch, draws, plain=True)
+    with fixed_cudnn():
+        losses, grads, counts = iteration_grads(state, batch, draws, plain=False)
+        p_losses, p_grads, p_counts = iteration_grads(state, batch, draws, plain=True)
+        plain_mask = mask_factors(state, batch, draws, plain=True)
+        mask = mask_distance(mask_factors(state, batch, draws, plain=False), plain_mask)
+    mask_rounding = mask_distance(plain_mask, exact_mask)
     want = state.kernel_launches_per_iteration(with_r1=True)
     if counts != want or any(p_counts.values()):
         raise AssertionError(f"{tag} iteration: launches {counts} with kernels (want {want}), "
                              f"{p_counts} with plain versions forced")
     loss_err = {k: abs(losses[k] - v) / max(abs(v), 1e-12) for k, v in p_losses.items()}
+    held = [k for k in loss_err if not (tag == "bf16" and k == "G_mask")]
+    loss_worst = max(held, key=loss_err.get)
     grad_err, tiny = grad_errors(grads, p_grads, exact)
     rounding = {n: rel_err(p_grads[n], exact[n]) for n in grad_err}
     limit = {n: max(grad_tol, SPREAD * d) for n, d in rounding.items()}
@@ -1561,7 +1674,8 @@ def compare_iteration(tag: str, state, batch, draws, exact: dict) -> dict:
     worst, nearest = max(grad_err, key=grad_err.get), max(share, key=share.get)
     kernels_far = {n: rel_err(grads[n], exact[n]) for n in grad_err}
     result = {"tag": tag, "losses_kernels": losses, "losses_plain": p_losses,
-              "max_loss_rel_err": max(loss_err.values()),
+              "max_loss_rel_err": loss_err[loss_worst], "worst_loss": loss_worst,
+              "G_mask_rel_err": loss_err["G_mask"],
               "max_grad_rel_err": grad_err[worst], "worst_tensor": worst,
               "nearest_its_limit": {"tensor": nearest, "err": grad_err[nearest],
                                     "limit": limit[nearest], "share": share[nearest]},
@@ -1578,13 +1692,36 @@ def compare_iteration(tag: str, state, batch, draws, exact: dict) -> dict:
                                         "median": sorted(kernels_far.values())[
                                             len(kernels_far) // 2],
                                         f"at_{worst}": kernels_far[worst]},
-              "tolerance": {"loss": loss_tol, "grad": grad_tol, "spread": SPREAD}}
+              "mask_vs_plain": mask, "mask_plain_vs_fp32_plain": mask_rounding,
+              "mask_ratio": mask_ratios(mask, mask_rounding) if tag == "bf16" else None,
+              "tolerance": {"loss": loss_tol, "grad": grad_tol, "spread": SPREAD,
+                            **({"mask": MASK_TOL} if tag == "bf16" else {})}}
+    failed = []
+    if result["max_loss_rel_err"] > loss_tol:
+        failed.append(f"loss {loss_worst} rel err {loss_err[loss_worst]:.3g} (limit {loss_tol})")
+    if share[nearest] > 1.0:
+        failed.append(f"grad rel err {grad_err[nearest]:.3g} ({nearest}) beyond its limit "
+                      f"{limit[nearest]:.3g}")
+    if tag == "bf16":
+        ratio = result["mask_ratio"]
+        failed += [f"G_mask's {k} at {ratio[k]:.3g} of bf16's own distance (limit {limit})"
+                   for k, limit in MASK_TOL.items() if not ratio[k] <= limit]
+    result["failed"] = failed
+    return result
+
+
+def compare_iteration(tag: str, state, batch, draws, exact: dict, exact_mask: dict) -> dict:
+    """Kernels vs plain versions on one iteration, both under
+    ``fixed_cudnn``, held to TRAIN_TOL[tag] on the losses and on the
+    tensors ``grad_errors`` holds, ``exact`` being the fp32 plain run's
+    gradients; a gradient whose plain run lies a distance d from
+    ``exact`` is held to the larger of the tolerance and SPREAD * d.  In
+    bf16 G_mask is held by its factors against ``exact_mask`` (the fp32
+    plain run's ``mask_factors``) to ``MASK_TOL``, not relative."""
+    result = iteration_verdict(tag, state, batch, draws, exact, exact_mask)
     print(json.dumps({"train_kernels_vs_plain": result}), flush=True)
-    if result["max_loss_rel_err"] > loss_tol or share[nearest] > 1.0:
-        raise AssertionError(f"{tag} iteration, kernels vs plain: loss rel err "
-                             f"{result['max_loss_rel_err']:.3g} (limit {loss_tol}), grad rel err "
-                             f"{grad_err[nearest]:.3g} ({nearest}) beyond its limit "
-                             f"{limit[nearest]:.3g}")
+    if result["failed"]:
+        raise AssertionError(f"{tag} iteration, kernels vs plain: " + "; ".join(result["failed"]))
     return result
 
 
@@ -1597,6 +1734,17 @@ def fp32_copy(cfg, state):
     for m in ("g1", "g2", "d", "att_conv"):
         getattr(state32, m).load_state_dict(getattr(state, m).state_dict())
     return state32
+
+
+def fp32_reference(cfg, state, batch, draws):
+    """``fp32_copy`` of ``state`` and, under ``fixed_cudnn`` with the
+    plain versions forced, its iteration's gradients and mask factors:
+    what ``compare_iteration`` holds both dtypes against."""
+    state32 = fp32_copy(cfg, state)
+    with fixed_cudnn():
+        exact = iteration_grads(state32, batch, draws, plain=True)[1]
+        exact_mask = mask_factors(state32, batch, draws, plain=True)
+    return state32, exact, exact_mask
 
 
 def torch_isfinite(t) -> bool:
@@ -1645,7 +1793,7 @@ def training_phase(cfg, card) -> dict:
     expected = {}
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with ops.record_calls(log):
+    with ops.record_calls(log), fixed_cudnn():  # the compared state repeats its bits
         for _ in range(TRAIN_ITERS):
             with_r1 = cfg.lazy_reg is None or state.step % cfg.lazy_reg == 0
             for k, v in state.kernel_launches_per_iteration(with_r1).items():
@@ -1678,11 +1826,10 @@ def training_phase(cfg, card) -> dict:
     # -- one iteration, kernels vs plain versions, bf16 and fp32 (TF32 off)
     dgen = torch.Generator(DEVICE).manual_seed(SEED + 53)
     draws = tuple(TrainDraws.draw(cfg, batch[3], dgen) for _ in range(2))
-    state32 = fp32_copy(cfg, state)
-    exact = iteration_grads(state32, batch, draws, plain=True)[1]
-    compared = [compare_iteration("bf16", state, batch, draws, exact),
-                compare_iteration("fp32", state32, batch, draws, exact)]
-    del state32, exact
+    state32, exact, exact_mask = fp32_reference(cfg, state, batch, draws)
+    compared = [compare_iteration(tag, st, batch, draws, exact, exact_mask)
+                for tag, st in (("bf16", state), ("fp32", state32))]
+    del state32, exact, exact_mask
 
     # -- times, memory, profile
     d_step, g_step = make_d_step(), make_g_step()
@@ -2806,6 +2953,23 @@ CRITICS = (("DiscriminatorSmall", 32, 3, 64), ("DiscriminatorImgLarge", IMAGE, 1
 CRITIC_NGF = 64
 
 
+def branch_training_inputs(cfg, seed: int = SEED):
+    """Phase 14's training inputs at ``cfg``: a train state whose G1, G2
+    and D are randomized from ``seed`` + 84, the batch, and that
+    generator, which then draws the rest."""
+    import torch
+
+    from mudiff_torch.train import create_train_state
+
+    state = create_train_state(cfg, seed=seed, device=DEVICE, attn="flash")
+    tgen = torch.Generator(DEVICE).manual_seed(seed + 84)
+    for module in (state.g1, state.g2, state.d):
+        randomize_(module, tgen)
+    batch = [torch.randn((TRAIN_BATCH, IMAGE, IMAGE, 1), generator=tgen,
+                         device=DEVICE).tanh() for _ in range(4)]
+    return state, batch, tgen
+
+
 def branch_phase(card, work: str) -> dict:
     """Phase 14: B1 and B2 through ``build_sampler`` (three counted batch-4
     requests, --attn flash; the sample against the plain versions at the
@@ -2826,7 +2990,7 @@ def branch_phase(card, work: str) -> dict:
     from mudiff_torch.cli import test as test_cli
     from mudiff_torch.cli import train as train_cli
     from mudiff_torch.cli.args import parse_config
-    from mudiff_torch.train import TrainDraws, create_train_state, make_train_step
+    from mudiff_torch.train import TrainDraws, make_train_step
 
     t_phase = time.perf_counter()
     base = brats_recipe(num_channels_dae=NF, image_size=IMAGE)
@@ -2913,25 +3077,20 @@ def branch_phase(card, work: str) -> dict:
         prof["idle_share_of_best_request"] = 1.0 - prof["device_busy_ms"] / (1e3 * best)
         del s
 
-        state = create_train_state(cfg, seed=SEED, device=DEVICE, attn="flash")
-        tgen = torch.Generator(DEVICE).manual_seed(SEED + 84)
-        for module in (state.g1, state.g2, state.d):
-            randomize_(module, tgen)
-        batch = [torch.randn((TRAIN_BATCH, IMAGE, IMAGE, 1), generator=tgen,
-                             device=DEVICE).tanh() for _ in range(4)]
-        metrics, iteration_s = count(
-            f"{name} training iteration",
-            lambda: make_train_step(cfg)(state, batch, generator=tgen, with_r1=True),
-            state.kernel_launches_per_iteration(with_r1=True))
+        state, batch, tgen = branch_training_inputs(cfg)
+        with fixed_cudnn():  # Adam's first step is sign(g): a flipped bit moves a weight
+            metrics, iteration_s = count(
+                f"{name} training iteration",
+                lambda: make_train_step(cfg)(state, batch, generator=tgen, with_r1=True),
+                state.kernel_launches_per_iteration(with_r1=True))
         if not all(math.isfinite(float(v)) for v in metrics.values()):
             raise AssertionError(f"{name}: a training loss is not finite: {metrics}")
         draws = tuple(TrainDraws.draw(cfg, batch[3], tgen) for _ in range(2))
-        state32 = fp32_copy(cfg, state)
-        exact = iteration_grads(state32, batch, draws, plain=True)[1]
-        compared = {"bf16": compare_iteration("bf16", state, batch, draws, exact)}
+        state32, exact, exact_mask = fp32_reference(cfg, state, batch, draws)
+        compared = {"bf16": compare_iteration("bf16", state, batch, draws, exact, exact_mask)}
         del state
-        compared["fp32"] = compare_iteration("fp32", state32, batch, draws, exact)
-        del state32, exact
+        compared["fp32"] = compare_iteration("fp32", state32, batch, draws, exact, exact_mask)
+        del state32, exact, exact_mask
         report[name] = {
             "config": over, "request_s": request_s, "best_request_s": best,
             "slices_per_s": BATCH / best, "device_busy_ms": prof["device_busy_ms"],
@@ -2942,8 +3101,10 @@ def branch_phase(card, work: str) -> dict:
             "tolerance": {**BRANCH_TOL[name], "flash": BF16_VOLUME_TOL},
             "training_iteration_s": iteration_s,
             "training_vs_plain": {tag: {k: r[k] for k in (
-                "max_loss_rel_err", "max_grad_rel_err", "worst_tensor", "nearest_its_limit",
-                "tensors_above_tol", "kernels_vs_fp32_plain", "plain_vs_fp32_plain")}
+                "max_loss_rel_err", "worst_loss", "G_mask_rel_err", "max_grad_rel_err",
+                "worst_tensor", "nearest_its_limit", "tensors_above_tol",
+                "kernels_vs_fp32_plain", "plain_vs_fp32_plain", "mask_vs_plain",
+                "mask_plain_vs_fp32_plain", "mask_ratio", "tolerance")}
                 for tag, r in compared.items()},
             "seconds": time.perf_counter() - t0}
         print(json.dumps({"card": card, "phase": "model branches", name: report[name]}),

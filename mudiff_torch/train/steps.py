@@ -219,12 +219,11 @@ def d_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws,
     return grads, {k: v.detach() for k, v in aux.items()}
 
 
-def g_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws
-                     ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]],
-                                Dict[str, torch.Tensor]]:
-    """The G step's gradients (G1's and G2's, ``parameters()`` order) and
-    losses.  D's parameters get no gradient."""
-    cfg = state.config
+def g_forward(state: TrainState, batch: Batch, draws: TrainDraws) -> Dict[str, torch.Tensor]:
+    """The G step's forward up to the losses: ``x0_g1`` / ``x0_g2`` (the
+    generators' outputs), ``x_tp1``, the posterior samples ``pos_g1`` /
+    ``pos_g2`` and the critic's ``logit_g*`` and mid features ``feat_g*``
+    on each (``mudiff_tpu/train/steps.py:221-246``)."""
     state.materialize()
     c1, c2, c3, real = batch
     t = draws.t
@@ -235,20 +234,51 @@ def g_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws
                      dropout_seeds=draws.dropout_g2, dropout_rows=draws.dropout_rows)
     pos_g1 = sample_posterior(state.pos_coeff, x0_g1, x_tp1, t, draws.noise_post1)
     pos_g2 = sample_posterior(state.pos_coeff, x0_g2, x_tp1, t, draws.noise_post2)
-    if critic_remat(cfg):
+    if critic_remat(state.config):
         logit_g1, feat_g1 = remat.checkpointed("critic", state.d, pos_g1, t, x_tp1)
         logit_g2, feat_g2 = remat.checkpointed("critic", state.d, pos_g2, t, x_tp1)
     else:
         logit_g1, feat_g1 = state.d(pos_g1, t, x_tp1)
         logit_g2, feat_g2 = state.d(pos_g2, t, x_tp1)
+    return {"x0_g1": x0_g1, "x0_g2": x0_g2, "x_tp1": x_tp1, "pos_g1": pos_g1,
+            "pos_g2": pos_g2, "logit_g1": logit_g1, "logit_g2": logit_g2,
+            "feat_g1": feat_g1, "feat_g2": feat_g2}
 
+
+def mask_terms(att_conv: torch.nn.Module, fwd: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+    """The mask loss's factors on ``g_forward``'s outputs
+    (``mudiff_tpu/train/steps.py:248-266``): the attention logits
+    ``att_logit_g*`` (``att_conv`` of the critic's features, before the
+    sigmoid), the maps ``att_g*`` (their sigmoid resized to the image),
+    the BCE factors ``bce_1`` = BCE(pos_g1, sigmoid(pos_g2)) and ``bce_2``
+    (the other way) and the two terms, mask = ``term_1`` + ``term_2`` with
+    ``term_1`` = mean(att_g2 * bce_1)."""
+    pos_g1, pos_g2 = fwd["pos_g1"], fwd["pos_g2"]
     hw = pos_g1.shape[1:3]
-    att_g1 = bilinear_resize(torch.sigmoid(state.att_conv(feat_g1)), hw)
-    att_g2 = bilinear_resize(torch.sigmoid(state.att_conv(feat_g2)), hw)
-    mask_loss = (torch.mean(att_g2 * _bce_with_logits(pos_g1, torch.sigmoid(pos_g2)))
-                 + torch.mean(att_g1 * _bce_with_logits(pos_g2, torch.sigmoid(pos_g1))))
-    err_adv = _softplus_mean(-logit_g1) + _softplus_mean(-logit_g2)
-    err_l1 = torch.mean(torch.abs(x0_g1 - real)) + torch.mean(torch.abs(x0_g2 - real))
+    out = {"att_logit_g1": att_conv(fwd["feat_g1"]), "att_logit_g2": att_conv(fwd["feat_g2"]),
+           "bce_1": _bce_with_logits(pos_g1, torch.sigmoid(pos_g2)),
+           "bce_2": _bce_with_logits(pos_g2, torch.sigmoid(pos_g1))}
+    for i in ("g1", "g2"):
+        out[f"att_{i}"] = bilinear_resize(torch.sigmoid(out[f"att_logit_{i}"]), hw)
+    out["term_1"] = torch.mean(out["att_g2"] * out["bce_1"])
+    out["term_2"] = torch.mean(out["att_g1"] * out["bce_2"])
+    return out
+
+
+def g_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws
+                     ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]],
+                                Dict[str, torch.Tensor]]:
+    """The G step's gradients (G1's and G2's, ``parameters()`` order) and
+    losses.  D's parameters get no gradient."""
+    cfg = state.config
+    real = batch[3]
+    fwd = g_forward(state, batch, draws)
+    mask = mask_terms(state.att_conv, fwd)
+    mask_loss = mask["term_1"] + mask["term_2"]
+    err_adv = _softplus_mean(-fwd["logit_g1"]) + _softplus_mean(-fwd["logit_g2"])
+    err_l1 = (torch.mean(torch.abs(fwd["x0_g1"] - real))
+              + torch.mean(torch.abs(fwd["x0_g2"] - real)))
     total = err_adv + cfg.lambda_l1_loss * err_l1 + cfg.lambda_mask_loss * mask_loss
 
     p1, p2 = list(state.g1.parameters()), list(state.g2.parameters())

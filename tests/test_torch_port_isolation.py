@@ -109,6 +109,62 @@ def test_chip_smoke_kernels_line_has_every_key():
         chip_smoke.kernel_summary("fir_up2", rows, 5)
 
 
+@pytest.mark.parametrize("value, spacing", [(1.0, 2.0**-7), (1.5, 2.0**-7), (14.0, 2.0**-4),
+                                            (-14.0, 2.0**-4), (0.375, 2.0**-9), (-16.0, 2.0**-3)])
+def test_chip_smoke_bf16_spacing(value, spacing):
+    """``bf16_spacing`` is the gap from a bf16 number to the next one
+    away from zero, at the number's magnitude."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    x = torch.tensor([value])
+    assert float(chip_smoke.bf16_spacing(x)) == spacing
+    step = torch.tensor([value + (spacing if value > 0 else -spacing)])
+    assert torch.equal(step.to(torch.bfloat16).float(), step)
+    assert torch.equal((x + (spacing / 4 if value > 0 else -spacing / 4)).to(torch.bfloat16)
+                       .float(), x)
+
+
+def test_chip_smoke_mask_distance_reads_logits_in_bf16_spacings():
+    """``mask_distance`` reads the attention logits in bf16 spacings at
+    the reference's mean magnitude (one spacing is 0.0625 at 13.5) and the
+    BCE factors relative; ``mask_ratios`` holds them over the plain bf16
+    run's own distance from fp32, each BCE factor over its own."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(0)
+    ref = {"att_logit_g1": torch.full((2, 4, 4, 1), -14.0),
+           "att_logit_g2": torch.full((2, 4, 4, 1), -13.0),
+           **{k: torch.rand((2, 16, 16, 1), generator=g) for k in ("bce_1", "bce_2")},
+           **{k: torch.randn((2, 16, 16, 1), generator=g) for k in ("pos_g1", "pos_g2")},
+           **{k: torch.randn((2, 4, 4, 8), generator=g) for k in ("feat_g1", "feat_g2")}}
+    for i, bce in (("g1", "bce_2"), ("g2", "bce_1")):
+        ref[f"att_{i}"] = torch.sigmoid(ref[f"att_logit_{i}"]).repeat_interleave(4, 1) \
+            .repeat_interleave(4, 2)
+    ref["term_1"] = torch.mean(ref["att_g2"] * ref["bce_1"])
+    ref["term_2"] = torch.mean(ref["att_g1"] * ref["bce_2"])
+    got = dict(ref)
+    got["att_logit_g1"] = ref["att_logit_g1"].clone()
+    got["att_logit_g1"][0] += 0.0625  # one spacing, on half of one map's logits
+    got["bce_1"] = ref["bce_1"] * 1.01
+    got["term_1"] = ref["term_1"] * 1.01
+    d = chip_smoke.mask_distance(got, ref)
+    assert d["logit_mean_abs_spacings"] == d["logit_mean_signed_spacings"] == 0.25
+    assert d["logit_max_abs_spacings"] == 1.0 and d["logit_share_differing"] == 0.25
+    assert d["logit_range"] == [-14.0, -13.0]
+    assert abs(d["bce_rel_err"] - 0.01) < 1e-6 and d["bce_2_rel_err"] == 0.0
+    assert abs(d["term_1_rel_err"] - 0.01) < 1e-6 and d["feat_rel_err"] == 0.0
+    assert d["pos_max_abs"] == 0.0 and d["G_mask_rel_err"] > 0.0
+    assert chip_smoke.mask_distance(ref, ref)["logit_mean_abs_spacings"] == 0.0
+    rounding = {**d, "logit_mean_abs_spacings": 0.5, "bce_1_rel_err": 0.02, "bce_2_rel_err": 1e-3}
+    assert chip_smoke.mask_ratios(d, rounding) == {"logits": 0.5, "bce": d["bce_1_rel_err"] / 0.02}
+
+
 def test_chip_smoke_flash_attn_entry_sums_the_volume_phase():
     """K3's entry counts the volume phase's launches; a shape that only
     the comparison ran (0 launches) adds to no time, and counts that

@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from mudiff_tpu import config as jconfig
 from mudiff_tpu.models import critic as jcritic
 from mudiff_tpu.train import create_train_state as jax_create_train_state
+from mudiff_tpu.train.state import apply_att_conv
+from mudiff_tpu.train.steps import _bce_with_logits as jax_bce_with_logits
 from mudiff_tpu.train.steps import make_d_step as jax_make_d_step
 from mudiff_tpu.train.steps import make_g_step as jax_make_g_step
 from mudiff_tpu.diffusion import DiffusionCoefficients as JaxCoeff
@@ -41,7 +43,7 @@ from mudiff_torch.train import (
     g_loss_and_grads,
     make_train_step,
 )
-from mudiff_torch.train.steps import bilinear_resize
+from mudiff_torch.train.steps import bilinear_resize, g_forward, mask_terms
 from test_torch_port_helpers import random_flax_params
 
 TINY = dict(image_size=64, num_channels=1, num_channels_dae=16, ch_mult=(1, 2),
@@ -104,7 +106,7 @@ def ref():
     g_step = jax_make_g_step(cfg, g1.apply, g2.apply, d.apply, coeff, pos)
     kd, kg = jax.random.PRNGKey(11), jax.random.PRNGKey(12)
     out = {"state_np": jax.tree_util.tree_map(np.asarray, state), "cfg": cfg,
-           "draws": {"d": _jax_draws(kd, cfg), "g": _jax_draws(kg, cfg)}}
+           "draws": {"d": _jax_draws(kd, cfg), "g": _jax_draws(kg, cfg)}, "d_apply": d.apply}
     for r1 in (True, False):
         s2, aux = d_step(state, batch, kd, with_r1=r1)
         out[f"d{int(r1)}"] = ({k: float(v) for k, v in aux.items()},
@@ -173,6 +175,41 @@ def test_g_step_matches_jax(ref):
     _check_losses(aux, want_aux)
     _check_grads(state.g1, grads_g1, want_g1)
     _check_grads(state.g2, grads_g2, want_g2)
+
+
+def test_g_step_mask_factors_match_jax(ref):
+    """The G step's mask-loss factors (``mask_terms`` on ``g_forward``)
+    against the JAX package's on the same posterior samples: the critic's
+    features, ``apply_att_conv`` of them (the attention logits), their
+    sigmoid resized by ``jax.image.resize`` (the two maps) and the two
+    BCE factors, ``steps.py:248-266``.  fp32, so only the order of sums
+    differs: 1e-5 of each tensor's largest magnitude; the terms' sum is
+    the JAX step's G_mask within 1e-5 relative."""
+    state = _port_state(ref)
+    with torch.no_grad():
+        fwd = g_forward(state, [torch.from_numpy(a) for a in _batch()], ref["draws"]["g"])
+        got = mask_terms(state.att_conv, fwd)
+    jnp_ = {k: jnp.asarray(fwd[k].numpy()) for k in ("pos_g1", "pos_g2", "x_tp1")}
+    t = jnp.asarray(ref["draws"]["g"].t.numpy(), jnp.int32)
+    params_d, att_conv = ref["state_np"].params_d, ref["state_np"].att_conv
+    want = {}
+    for i in ("g1", "g2"):
+        _, feat = ref["d_apply"]({"params": params_d}, jnp_[f"pos_{i}"], t, jnp_["x_tp1"])
+        want[f"feat_{i}"] = feat
+        want[f"att_logit_{i}"] = apply_att_conv(att_conv, feat)
+        want[f"att_{i}"] = jax.image.resize(jax.nn.sigmoid(want[f"att_logit_{i}"]),
+                                            (B, S, S, 1), method="bilinear")
+    want["bce_1"] = jax_bce_with_logits(jnp_["pos_g1"], jax.nn.sigmoid(jnp_["pos_g2"]))
+    want["bce_2"] = jax_bce_with_logits(jnp_["pos_g2"], jax.nn.sigmoid(jnp_["pos_g1"]))
+    mine = {**got, "feat_g1": fwd["feat_g1"], "feat_g2": fwd["feat_g2"]}
+    for name, w in want.items():
+        w = np.asarray(w)
+        assert mine[name].shape == w.shape, name
+        np.testing.assert_allclose(mine[name].numpy(), w, rtol=0,
+                                   atol=1e-5 * float(np.abs(w).max()), err_msg=name)
+    assert float(np.abs(want["att_logit_g1"]).max()) > 0.1  # att_conv is not a no-op
+    mask = float(got["term_1"] + got["term_2"])
+    np.testing.assert_allclose(mask, ref["g"][0]["G_mask"], rtol=1e-5)
 
 
 def test_r1_penalty_reaches_the_critic_grads(ref):

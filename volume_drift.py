@@ -3,7 +3,8 @@
 kernels lie from the same through their plain versions, over seeds and
 beside K1 and K3 faults of known size.  Needs one NVIDIA GPU.
 
-    python3 volume_drift.py [--seeds 0 1 2] [--fp32 | --int8] [--out FILE.json]
+    python3 volume_drift.py [--seeds 0 1 2] [--fp32 | --int8 | --branch B1|B2]
+        [--iteration [--cudnn fixed|free]] [--out FILE.json]
 
 For each seed, ``chip_smoke.py``'s volume phase is run in bf16 (in fp32,
 ``--no_bf16``, with ``--fp32``) with ``--attn flash``: the weights, the three synthetic contrasts and the
@@ -57,6 +58,11 @@ relative gradient error over the tensors the smoke holds
 (``chip_smoke.grad_errors``), the tensor nearest its limit in the smoke
 and each stem conv's.  Their readings set ``BRANCH_TOL`` and ``SPREAD``
 in ``chip_smoke.py``.
+
+With ``--iteration`` (and ``--branch`` or not) only the mask loss of
+phase 14's iteration is read, seed by seed on phase 14's own state, under
+the smoke's fixed cuDNN choice or (``--cudnn free``) the timed one
+(``mask_readings``).  Its readings set ``MASK_TOL``.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ import json
 import math
 import sys
 import tempfile
+import time
 
 import chip_smoke as smoke
 
@@ -101,12 +108,16 @@ def head_tap_dropped(w):
 @contextlib.contextmanager
 def k1_head_fault(fault):
     """K1 run with weight ``fault(w)`` in every conv with Cout = 1: each
-    generator's ``final_conv``, the one such conv of the sampler."""
+    generator's ``final_conv``, the one such conv of the sampler.  The
+    plain versions, where forced, keep the true weight."""
+    from mudiff_torch.ops._dispatch import current_mode
+
     mod = sys.modules["mudiff_torch.ops.conv3x3"]
     real = mod._conv
 
     def faulty(x, w, bias):
-        return real(x, fault(w) if w.shape[-1] == 1 else w, bias)
+        forced_plain = current_mode()[0]
+        return real(x, fault(w) if w.shape[-1] == 1 and not forced_plain else w, bias)
 
     mod._conv = faulty
     try:
@@ -385,6 +396,113 @@ def tf32_allowed():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def cudnn_free():
+    """cuDNN as the smoke leaves it outside the training steps:
+    ``benchmark`` on (its timed choice of algorithm, which may differ from
+    one process to the next), any algorithm."""
+    import torch
+
+    saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+
+
+CUDNN_MODES = {"free": cudnn_free, "fixed": smoke.fixed_cudnn}
+
+
+def mask_readings(cfg, seed: int, card: str, mode: str) -> dict:
+    """The mask loss of phase 14's D (R1) + G iteration on this seed
+    (``chip_smoke.branch_training_inputs``, then one training step; seed
+    0 is the smoke's), everything under the cuDNN ``mode``: the G step's
+    forward (``chip_smoke.mask_factors``) through every kernel, each
+    kernel alone and under the K1 faults, each against the same forward
+    with every plain version forced and against the fp32 one
+    (``chip_smoke.mask_distance``), and the plain forward against the
+    fp32 one, with its wall seconds.  Under ``fixed`` also the smoke's
+    check itself (``chip_smoke.iteration_verdict``) on the sound kernels
+    and with K1's tap (0, 0) dropped at the Cout = 1 convs."""
+    import torch
+
+    from mudiff_torch.train import TrainDraws, make_train_step
+
+    t_run = time.perf_counter()
+    variants = {"kernels": contextlib.nullcontext,
+                "K1 alone": lambda: smoke.kernels_only("conv3x3"),
+                "K2 alone": lambda: smoke.kernels_only("fir_down2", "fir_up2"),
+                "K3 alone": lambda: smoke.kernels_only("flash_attn", "flash_attn_bwd_dkv",
+                                                       "flash_attn_bwd_dq"),
+                **{label: (lambda fault=fault: k1_head_fault(fault))
+                   for label, fault in k1_faults().items()}}
+    out = {}
+
+    def show(label):
+        print(json.dumps({"card": card, "seed": seed, "cudnn": mode, "variant": label,
+                          **out[label]}), flush=True)
+
+    with CUDNN_MODES[mode]():
+        state, batch, tgen = smoke.branch_training_inputs(cfg, seed)
+        make_train_step(cfg)(state, batch, generator=tgen, with_r1=True)
+        draws = tuple(TrainDraws.draw(cfg, batch[3], tgen) for _ in range(2))
+        state32 = smoke.fp32_copy(cfg, state)
+        exact = smoke.mask_factors(state32, batch, draws, plain=True)
+        ref = smoke.mask_factors(state, batch, draws, plain=True)
+        out["plain"] = {"vs_fp32_plain": smoke.mask_distance(ref, exact),
+                        "G_mask": float(ref["term_1"] + ref["term_2"])}
+        show("plain")
+        for label, context in variants.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with context():
+                got = smoke.mask_factors(state, batch, draws, plain=False)
+            torch.cuda.synchronize()
+            out[label] = {"vs_plain": smoke.mask_distance(got, ref),
+                          "vs_fp32_plain": smoke.mask_distance(got, exact),
+                          "forward_s": time.perf_counter() - t}
+            show(label)
+        if mode == "fixed":
+            grads32 = smoke.iteration_grads(state32, batch, draws, plain=True)[1]
+            checks = {"sound": contextlib.nullcontext,
+                      "K1 head tap (0, 0) dropped": lambda: k1_head_fault(head_tap_dropped)}
+            for label, context in checks.items():
+                with context():
+                    verdict = smoke.iteration_verdict("bf16", state, batch, draws, grads32,
+                                                      exact)
+                out[f"check: {label}"] = {k: verdict[k] for k in (
+                    "failed", "max_loss_rel_err", "worst_loss", "G_mask_rel_err",
+                    "nearest_its_limit", "mask_vs_plain", "mask_ratio")}
+                out[f"check: {label}"]["G_mask_equals_forward"] = (
+                    verdict["losses_plain"]["G_mask"] == out["plain"]["G_mask"])
+                show(f"check: {label}")
+    out["run_s"] = time.perf_counter() - t_run
+    return out
+
+
+def mask_summary(runs: list) -> dict:
+    """Per variant, each reading over the runs (in order): G_mask's and
+    the logits' distance from the plain and the fp32 plain forward, the
+    BCE factors' and the features'; and the checks' failures."""
+    keys = ("G_mask_rel_err", "logit_mean_abs_spacings", "logit_mean_signed_spacings",
+            "logit_max_abs_spacings", "bce_rel_err", "feat_rel_err", "pos_max_abs")
+    summary = {}
+    for run in runs:
+        for label, reading in run["readings"].items():
+            if not isinstance(reading, dict):
+                continue
+            for against in ("vs_plain", "vs_fp32_plain", "mask_vs_plain"):
+                if against in reading:
+                    row = summary.setdefault(f"{label} | {against}", {})
+                    for k in keys:
+                        row.setdefault(k, []).append(reading[against][k])
+            if "failed" in reading:
+                summary.setdefault(f"{label} | failed", []).append(
+                    reading["failed"])
+    return summary
+
+
 def branch_readings(cfg, seed: int, card: str) -> dict:
     """A branch configuration's sample, int8 samples and iteration."""
     import torch
@@ -458,8 +576,16 @@ def main(argv=None) -> int:
                        help="read the int8 leg's samples (W8A8, dynamic and static scales)")
     modes.add_argument("--branch", choices=sorted(BRANCH_NAMES),
                        help="read a branch configuration's samples and iteration")
+    parser.add_argument("--iteration", action="store_true",
+                        help="read only the mask loss of the recipe's or --branch's iteration")
+    parser.add_argument("--cudnn", choices=sorted(CUDNN_MODES), default="fixed",
+                        help="with --iteration: cuDNN's choice of algorithm, the smoke's "
+                             "(fixed) or timed (free); one a process, since the first "
+                             "choice made for a shape sticks")
     parser.add_argument("--out", help="also write every reading here")
     args = parser.parse_args(argv)
+    if args.iteration and (args.fp32 or args.int8):
+        parser.error("--iteration reads the recipe's or --branch's bf16 iteration")
 
     import torch
 
@@ -476,9 +602,22 @@ def main(argv=None) -> int:
     print(card, flush=True)
     _build.build()
     cfg = brats_recipe(num_channels_dae=smoke.NF, image_size=smoke.IMAGE)
+    if args.branch:
+        cfg = cfg.replace(**smoke.BRANCHES[BRANCH_NAMES[args.branch]])
+    if args.iteration:
+        runs = [{"cudnn": args.cudnn, "seed": seed,
+                 "readings": mask_readings(cfg, seed, card, args.cudnn)}
+                for seed in args.seeds]
+        head = {"card": card, "dtype": "bf16", "branch": args.branch or "recipe",
+                "mask_tolerance": smoke.MASK_TOL}
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({**head, "runs": runs}, f, indent=1)
+        print(json.dumps({**head, "seeds": args.seeds, "by_variant": mask_summary(runs)}),
+              flush=True)
+        return 0
     if args.int8 or args.branch:
         if args.branch:
-            cfg = cfg.replace(**smoke.BRANCHES[BRANCH_NAMES[args.branch]])
             readings = {seed: branch_readings(cfg, seed, card) for seed in args.seeds}
         else:
             readings = {seed: seed_readings(cfg, seed, card, int8=True) for seed in args.seeds}
