@@ -530,13 +530,49 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
     return float(err.max())
 
 
-def design_of(dtype) -> str:
-    """Which of the two kernels of K1, K3 and K3's backward (dkv and dq
-    alike) a dtype runs: "tc" (bf16 and fp16, mma.sync on the tensor
-    cores) or "fma" (fp32 on the CUDA cores)."""
+def design_of(dtype, path: str | None = None) -> str:
+    """Which kernel a call runs: K1 names its path (``k1_path``: "wgmma",
+    bf16 / fp16 on Hopper's wgmma and TMA; "general", bf16 / fp16 on
+    mma.sync; "fma", fp32 on the CUDA cores); K3 and K3's backward (dkv
+    and dq alike) the kernel of their dtype, "tc" (bf16 and fp16, mma.sync
+    on the tensor cores) or "fma" (fp32)."""
     import torch
 
+    if path is not None:
+        return path
     return "fma" if dtype == torch.float32 else "tc"
+
+
+def k1_expected_paths(log, start: int = 0) -> dict:
+    """K1's launches by path that ``k1_path`` predicts for the calls
+    ``log`` recorded from ``start`` on (every tensor the port hands K1
+    starts on a 16-byte boundary): wide bf16 / fp16 calls on "wgmma", the
+    narrow ones (the stems, the heads, their dx) on "general", fp32 on
+    "fma"."""
+    from mudiff_torch import ops
+    from mudiff_torch.ops.conv3x3 import k1_path_for
+
+    want = dict.fromkeys(ops.conv3x3.path_launches, 0)
+    for name, key in log[start:]:
+        if name == "conv3x3":
+            (_, _, _, cin), cout, dtype = key
+            want[k1_path_for(cin, cout, dtype)] += 1
+    return want
+
+
+def k1_path_check(tag: str, log, start: int = 0) -> dict:
+    """K1's launches by path since the counts were zeroed
+    (``ops.conv3x3.path_launches``) against ``k1_expected_paths`` of the
+    run's calls, which must all have launched; printed, and raises on a
+    difference."""
+    from mudiff_torch import ops
+
+    got, want = dict(ops.conv3x3.path_launches), k1_expected_paths(log, start)
+    print(json.dumps({"run": tag, "k1_path_launches": got}), flush=True)
+    if got != want or sum(got.values()) != ops.conv3x3.launches:
+        raise AssertionError(f"{tag}: K1 by path {got} ({ops.conv3x3.launches} launches), "
+                             f"its calls' shapes predict {want}")
+    return got
 
 
 def with_bound_share(row: dict) -> dict:
@@ -546,12 +582,16 @@ def with_bound_share(row: dict) -> dict:
 
 
 def conv_rows(shapes, peaks, card):
-    """K1 at each shape of either path: checks, times, bound.  ``shapes``
-    maps (x shape, Cout, dtype) to its launch counts (``shape_counts``)."""
+    """K1 at each shape of any path: checks in bf16, fp16 and fp32, the
+    kernel ``k1_path`` picks in the path's dtype (``design``), times,
+    bound; at the main path's shapes also the kernel's time in fp16.
+    ``shapes`` maps (x shape, Cout, dtype) to its launch counts
+    (``shape_counts``)."""
     import torch
     import torch.nn.functional as F
 
     from mudiff_torch.ops import conv3x3, conv3x3_plain
+    from mudiff_torch.ops.conv3x3 import k1_path
 
     bf16_peak, fp32_peak, hbm = peaks
     g = torch.Generator(DEVICE).manual_seed(SEED + 1)
@@ -562,10 +602,12 @@ def conv_rows(shapes, peaks, card):
         wt = torch.randn((3, 3, cin, cout), generator=g, device=DEVICE) / math.sqrt(9 * cin)
         bias = 0.1 * torch.randn((cout,), generator=g, device=DEVICE)
         errs = {}
-        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        for tag, dt in (("bf16", torch.bfloat16), ("fp16", torch.float16),
+                        ("fp32", torch.float32)):
             xd, wd = x.to(dt), wt.to(dt)
             errs[tag] = check_close(f"conv3x3 {xshape}->{cout} {tag}", conv3x3(xd, wd, bias),
-                                    conv3x3_plain(xd, wd, bias), *TOL[tag])
+                                    conv3x3_plain(xd, wd, bias),
+                                    *TOL["fp32" if tag == "fp32" else "bf16"])
         # timed in the dtype the path gave this shape
         xd, wd = x.to(dtype), wt.to(dtype)
         x_nchw = xd.permute(0, 3, 1, 2)  # a channels_last view, no copy
@@ -577,10 +619,14 @@ def conv_rows(shapes, peaks, card):
         size = xd.element_size()
         flops = 2.0 * b * h * w * 9 * cin * cout
         nbytes = size * (b * h * w * (cin + cout) + 9 * cin * cout) + 4.0 * cout
+        fp16 = {}
+        if counts["launches"]:  # the main path's shapes, also in fp16
+            x16, w16 = x.to(torch.float16), wt.to(torch.float16)
+            fp16["ms_fp16"] = time_ms(lambda: conv3x3(x16, w16, bias))
         rows.append(with_bound_share({
             "kernel": "conv3x3", "x": list(xshape), "cout": cout, "dtype": str(dtype)[6:],
-            "design": design_of(dtype), **counts,
-            "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
+            "design": design_of(dtype, k1_path(xd, wd)), **counts, **fp16,
+            "err_bf16": errs["bf16"], "err_fp16": errs["fp16"], "err_fp32": errs["fp32"],
             "ms": time_ms(lambda: conv3x3(xd, wd, bias)),
             "plain_ms": time_ms(lambda: conv3x3_plain(xd, wd, bias)),
             "library_ms": time_ms(lambda: F.conv2d(x_nchw, w_oihw, bias_d, padding=1)),
@@ -1076,6 +1122,7 @@ def int8_phase(cfg, sampler, requests, x_init, noise, card) -> dict:
                 seconds[mode].append(time.perf_counter() - t)
     launches = ops.launch_counts()
     paths = dict(ops.int8_conv3x3.path_launches)
+    k1_paths = k1_path_check("int8 sampler", log)
     print(json.dumps({"int8_launch_counts": launches, "expected": expected,
                       "k4_path_launches": paths, "request_s": seconds}), flush=True)
     if launches != expected or not launches["int8_conv3x3"]:
@@ -1108,7 +1155,8 @@ def int8_phase(cfg, sampler, requests, x_init, noise, card) -> dict:
         "sample_kernel_vs_plain_max_abs": diffs, "tolerance": INT8_SAMPLE_TOL,
         "sample_vs_bf16_sample_max_abs": vs_bf16, "sample_runs": runs,
         "profile_one_request": profiles}), flush=True)
-    return {"launches": launches, "k4_path_launches": paths, "log": log, "calibs": calibs,
+    return {"launches": launches, "k4_path_launches": paths, "k1_path_launches": k1_paths,
+            "log": log, "calibs": calibs,
             "best_request_s": best, "profiles": profiles, "sample_diffs": diffs,
             "sample_vs_bf16": vs_bf16}
 
@@ -1379,14 +1427,17 @@ def run_volume(cfg, workdir: str, tag: str, extra=(), plain=False, record=None, 
     from mudiff_torch.cli import test_volume
 
     argv = volume_argv(cfg, workdir, os.path.join(workdir, tag), int8) + list(extra)
+    log = [] if record is None else record
+    start = len(log)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with ops.record_calls([] if record is None else record), \
-            (ops.plain_kernels() if plain else contextlib.nullcontext()):
+    with ops.record_calls(log), (ops.plain_kernels() if plain else contextlib.nullcontext()):
         t = time.perf_counter()
         path = test_volume.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
+    if not plain:
+        k1_path_check(f"volume {tag}", log, start)
     return check_volume(path), seconds, ops.launch_counts()
 
 
@@ -1804,6 +1855,7 @@ def training_phase(cfg, card) -> dict:
             seconds.append(time.perf_counter() - t)
             metrics.append({k: float(v) for k, v in m.items()} | {"R1_step": with_r1})
     launches = ops.launch_counts()
+    k1_path_check("training", log)
     print(json.dumps({"phase": "training", "launch_counts": launches, "expected": expected,
                       "iteration_s": seconds, "losses": metrics}), flush=True)
     if launches != expected:
@@ -1965,13 +2017,15 @@ def payload_equal(a, b, path="content") -> None:
         raise AssertionError(f"restored {path}: {a!r} != {b!r}")
 
 
-def counted(log, fn):
+def counted(log, fn, tag: str = "counted run"):
     """``fn()`` with the launch counts zeroed just before and read just
-    after; returns (its result, the counts, its wall seconds)."""
+    after, K1's by path checked (``k1_path_check``); returns (its result,
+    the counts, its wall seconds)."""
     import torch
 
     from mudiff_torch import ops
 
+    start = len(log)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     with ops.record_calls(log):
@@ -1979,6 +2033,7 @@ def counted(log, fn):
         out = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
+    k1_path_check(tag, log, start)
     return out, ops.launch_counts(), seconds
 
 
@@ -2033,7 +2088,7 @@ def loop_phase(cfg, card, work: str) -> dict:
     # -- train: LOOP_EPOCHS epochs, counted
     torch.cuda.reset_peak_memory_stats()
     first, counts["train"], seconds["train"] = counted(
-        log, lambda: train_cli.main(argv + ["--num_epoch", str(LOOP_EPOCHS)]))
+        log, lambda: train_cli.main(argv + ["--num_epoch", str(LOOP_EPOCHS)]), "phase 7 train")
     peak = torch.cuda.max_memory_allocated()
     exp = first["exp_dir"]
     n_steps = LOOP_EPOCHS * steps
@@ -2100,7 +2155,7 @@ def loop_phase(cfg, card, work: str) -> dict:
     for tag, extra, per in (("int8", [], struct["sample_int8"]),
                             ("bf16", ["--bf16"], struct["sample"])):
         res, counts[f"test {tag}"], seconds[f"test {tag}"] = counted(
-            log, lambda: test_cli.main(targv + extra))
+            log, lambda: test_cli.main(targv + extra), f"phase 7 test {tag}")
         paths = dict(ops.int8_conv3x3.path_launches)
         want = combine([(n_batches, per)])
         if counts[f"test {tag}"] != want:
@@ -2265,6 +2320,7 @@ def mesh_step_check(card) -> dict:
     import torch.distributed as dist
     import torch.nn.functional as F
 
+    from mudiff_torch import ops
     from mudiff_torch.config import _config_from_yaml, load_experiment
     from mudiff_torch.parallel import init_mesh
     from mudiff_torch.train import TrainDraws, create_train_state, make_d_step, make_g_step
@@ -2373,7 +2429,11 @@ def mesh_step_check(card) -> dict:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             a_losses, a_grads, a_s = leg(plain)
-            m_losses, m_grads, m_s = leg(ours)
+            k1_log = []
+            ops.reset_launch_counts()
+            with ops.record_calls(k1_log):
+                m_losses, m_grads, m_s = leg(ours)
+            k1_path_check("phase 13 mesh step", k1_log)
             b_losses, b_grads, b_s = leg(plain)
         warned = flagged(caught)
         vs_plain = grad_distance("mesh step", m_grads, m_losses, a_grads, a_losses)
@@ -2477,12 +2537,16 @@ def torchrun_train(out_path: str, argv) -> int:
         return mesh
 
     train_cli.init_mesh = recording_init_mesh
+    log = []
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    res = train_cli.main(argv)
+    with ops.record_calls(log):
+        res = train_cli.main(argv)
     torch.cuda.synchronize()
     with open(out_path, "w") as f:
         json.dump({"launches": ops.launch_counts(), "r1_steps": res["r1_steps"],
+                   "k1_path_launches": dict(ops.conv3x3.path_launches),
+                   "k1_expected_paths": k1_expected_paths(log),
                    "timings": res["timings"], "exp_dir": res["exp_dir"], "mesh": joined,
                    "torchrun_env": {k: os.environ.get(k) for k in
                                     ("RANK", "LOCAL_RANK", "WORLD_SIZE")}}, f)
@@ -2533,6 +2597,11 @@ def mesh_cli_check(cfg, card, work: str, loop: dict) -> dict:
     if first["launches"] != want or first["r1_steps"] != want_r1:
         raise AssertionError(f"torchrun train launches {first['launches']} != structure's "
                              f"{want}; R1 on {first['r1_steps']}")
+    print(json.dumps({"run": "torchrun train", "k1_path_launches": first["k1_path_launches"]}),
+          flush=True)
+    if first["k1_path_launches"] != first["k1_expected_paths"]:
+        raise AssertionError(f"torchrun train: K1 by path {first['k1_path_launches']}, its "
+                             f"calls' shapes predict {first['k1_expected_paths']}")
     exp = first["exp_dir"]
     tcfg = train_cli.parse_config(argv + ["--num_epoch", "2"], mode="train")[0]
     state = create_train_state(tcfg, seed=SEED + 93, steps_per_epoch=steps, device=DEVICE,
@@ -2680,9 +2749,11 @@ def remat_table(cfg, card, log) -> dict:
     for tag, policy, attn in REMAT_LEGS:
         state = states[attn]
         leg = set_policy(state, policy)
+        start = len(log)
         with ops.record_calls(log):
             losses, grads, counts = iteration_grads(state, batch, draws, plain=False)
         logged = ops.launch_counts()  # the D + G iteration and R1 alone, as ``log``
+        k1_path_check(f"remat {tag}", log, start)
         repeat = None
         if policy is None:  # the floor: the same iteration again, no remat
             r_losses, r_grads, _ = iteration_grads(state, batch, draws, plain=False)
@@ -2809,7 +2880,7 @@ def _run_phase(card, work: str, t_phase: float) -> dict:
     # -- train one epoch and test, counted
     torch.cuda.reset_peak_memory_stats()
     res, counts["run"], seconds["run"] = counted(
-        log, lambda: run.main(["-c", path, "-e", RUN_EXPERIMENT]))
+        log, lambda: run.main(["-c", path, "-e", RUN_EXPERIMENT]), "phase 8 run")
     peak = torch.cuda.max_memory_allocated()
     exp_dir = res["exp_dir"]
     timings = res["train"]["timings"]
@@ -2864,7 +2935,7 @@ def _run_phase(card, work: str, t_phase: float) -> dict:
     targv = recipe_argv(test_cfg) + ["--input_path", npy, "--ckpt_dir", exp_dir,
                                      "--int8_static", "--test_batch_size", "8"]
     res8, counts["test int8"], seconds["test int8"] = counted(
-        log, lambda: test_cli.main(targv))
+        log, lambda: test_cli.main(targv), "phase 8 test int8")
     k4_paths = dict(ops.int8_conv3x3.path_launches)
     if not counts["test int8"]["int8_conv3x3"] or \
             k4_paths != {"wgmma": counts["test int8"]["int8_conv3x3"], "general": 0}:
@@ -2998,7 +3069,7 @@ def branch_phase(card, work: str) -> dict:
     log, launches, report = [], {}, {}
 
     def count(tag, fn, want):
-        out, got, seconds = counted(log, fn)
+        out, got, seconds = counted(log, fn, f"phase 14 {tag}")
         launches[tag] = got
         if got != {**zero, **want}:
             raise AssertionError(f"{tag}: launches {got} != structure's {want}")
@@ -3282,7 +3353,7 @@ def _phantom_phase(card, work: str) -> dict:
     zero = dict.fromkeys(ops.KERNEL_WRAPPERS, 0)
 
     def count(tag, fn, want):
-        out, got, seconds[tag] = counted(log, fn)
+        out, got, seconds[tag] = counted(log, fn, f"phase 15 {tag}")
         launches[tag] = got
         if want is not None and got != {**zero, **want}:
             raise AssertionError(f"phase 15 {tag}: launches {got} != structure's {want}")
@@ -3455,10 +3526,12 @@ def main(argv=None) -> int:
     built = _build.build()
     build = {"build_s": time.perf_counter() - t0,
              "per_library_s": {k: v["seconds"] for k, v in built.items()},
-             "k4_gmma_instructions": sass_count(_build.library_path("int8_conv"), "GMMA")}
+             "k4_gmma_instructions": sass_count(_build.library_path("int8_conv"), "GMMA"),
+             "k1_gmma_instructions": sass_count(_build.library_path("conv3x3"), "GMMA")}
     print(json.dumps(build), flush=True)
-    if not build["k4_gmma_instructions"]:
-        raise AssertionError("K4's library holds no GMMA (wgmma) instruction")
+    for k in ("K4", "K1"):
+        if not build[f"{k.lower()}_gmma_instructions"]:
+            raise AssertionError(f"{k}'s library holds no GMMA (wgmma) instruction")
 
     cfg = brats_recipe(num_channels_dae=NF, image_size=IMAGE)
     sampler = build_sampler(cfg, device=DEVICE, generator=torch.Generator().manual_seed(SEED))
@@ -3480,6 +3553,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t)
     launches = ops.launch_counts()
+    k1_path_check("main path", log)
     per_sample = sampler.kernel_launches_per_sample()
     expected = {k: REQUESTS * v for k, v in per_sample.items()}
     print(json.dumps({"launch_counts": launches, "expected": expected,

@@ -546,6 +546,8 @@ cudaError_t launch(const int8_t* q, const int8_t* wq, const float* absmax, const
 
 namespace s8wgmma {
 
+using namespace tc;  // the mbarrier, TMA and wgmma helpers
+
 constexpr int THREADS = 512;           // four warpgroups: 128 registers a thread at most
 constexpr int QUANT_THREADS = 224;     // warps 1..7: the producer warp's three and warpgroup 1
 constexpr int CONSUMER_THREADS = 256;  // warpgroups 2 and 3 (m64 each)
@@ -607,59 +609,6 @@ struct Params {
   int tiles_w, tiles_h, tiles_n, chunks, nparts;
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tc::smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   tc::smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(tc::smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.  A fresh barrier
-// is in phase 0, so a wait on parity 1 returns at once (an empty slot).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = tc::smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(tc::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(tc::smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(tc::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(tc::smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
 // Barrier `id` of `count` threads (1: the consumers, 2: the quantizers;
 // 0 is __syncthreads).
 __device__ __forceinline__ void named_sync(int id, int count) {
@@ -674,20 +623,6 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t smem_addr) {
   return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
 }
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep an accumulator in place across the asynchronous product (no code).
-__device__ __forceinline__ void fence_reg(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // clip(rn(v), -127, 127) in the low byte of the result, as code_of gives it
 // (NaN -> 0, as cvt.rni does), without the quarter-rate float-to-int
@@ -1103,31 +1038,6 @@ conv_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
-// that the library links against nothing but cudart.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 template <typename T, bool DYN>
 cudaError_t launch_conv(const CUtensorMap& xmap, const CUtensorMap& wmap, const Params& p,
                         long long blocks, cudaStream_t stream) {
@@ -1143,11 +1053,6 @@ cudaError_t launch_conv(const CUtensorMap& xmap, const CUtensorMap& wmap, const 
   kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(xmap, wmap, p);
   return cudaGetLastError();
 }
-
-// Error codes of the entry point beyond cudaError_t's: the driver's
-// cuTensorMapEncodeTiled is missing, or refused a tensor map (+ CUresult).
-constexpr int NO_ENCODER = 10000;
-constexpr int ENCODE_FAILED = 20000;
 
 template <typename T>
 int fused(const void* x, const int8_t* wq, const float* inv_a, float* absmax, float* parts,

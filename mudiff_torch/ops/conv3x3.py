@@ -10,7 +10,10 @@ plain version is ``conv3x3_plain`` (``F.conv2d`` on float32 upcasts).
 ``conv3x3`` dispatches by device (``ops/_dispatch.py``): CPU tensors run
 the plain version, CUDA tensors launch the kernel or raise.  Its
 backward's input gradient is K1 again; ``conv3x3.launches`` counts
-kernel launches, forward and backward, and nothing else.
+kernel launches, forward and backward, and nothing else, and
+``conv3x3.path_launches`` the same launches by the kernel that took
+them (``k1_path``): ``"wgmma"`` (bf16 / fp16 on Hopper's wgmma and TMA),
+``"general"`` (bf16 / fp16 on ``mma.sync``) or ``"fma"`` (fp32).
 """
 
 from __future__ import annotations
@@ -48,17 +51,52 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype).contiguous()
 
 
-_FN = None
+_FNS = None
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("conv3x3").mudiff_conv3x3
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+def _kernel_fns():
+    """{path: entry point}: ``mudiff_conv3x3_wgmma`` for ``"wgmma"``,
+    ``mudiff_conv3x3`` (which picks by dtype) for the other two."""
+    global _FNS
+    if _FNS is None:
+        lib = _build.load("conv3x3")
+        fns = {}
+        for path, name in (("general", "mudiff_conv3x3"), ("wgmma", "mudiff_conv3x3_wgmma")):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[path] = fn
+        fns["fma"] = fns["general"]
+        _FNS = fns
+    return _FNS
+
+
+# The narrowest channels the wgmma path takes: a chunk of input channels
+# is 64 wide, and the stems (Cin 4 / 5), the head (Cout 1) and the
+# stem's dx (Cout 5) would leave most of a tile empty.
+WGMMA_MIN_CHANNELS = 64
+
+
+def k1_path_for(cin: int, cout: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """``k1_path`` from the shapes and dtype alone, with ``aligned`` saying
+    whether x and w start on 16-byte boundaries."""
+    if dtype == torch.float32:
+        return "fma"
+    if (cin >= WGMMA_MIN_CHANNELS and cout >= WGMMA_MIN_CHANNELS and cin % 8 == 0
+            and cout % 8 == 0 and aligned):
+        return "wgmma"
+    return "general"
+
+
+def k1_path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Which of K1's kernels takes a call on the contiguous NHWC ``x`` and
+    HWIO ``w``: ``"fma"`` for float32; for bf16 / fp16 ``"wgmma"`` when
+    Cin and Cout are at least 64 and multiples of 8 and x and w start on
+    16-byte boundaries (the tensor maps' strides and addresses), else
+    ``"general"``.  Decided before any launch, from shapes and addresses
+    alone, on any device."""
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return k1_path_for(x.shape[-1], w.shape[-1], x.dtype, aligned)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
@@ -85,17 +123,19 @@ def _conv(x: torch.Tensor, w: torch.Tensor,
     if not use_kernel("conv3x3", key, x, w, bias):
         return conv3x3_plain(x, w, bias)
     _check(x, w, bias)
+    path = k1_path(x, w)
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-    rc = _kernel_fn()(
+    rc = _kernel_fns()[path](
         x.data_ptr(), w.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         b, h, wd, cin, cout, DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    check_cuda_result("conv3x3", rc)
+    check_cuda_result(f"conv3x3 ({path})", rc)
     conv3x3.launches += 1
+    conv3x3.path_launches[path] += 1
     return out
 
 
@@ -150,3 +190,5 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
 
 
 conv3x3.launches = 0
+# the launches of each path (k1_path): the main path's wide shapes take "wgmma"
+conv3x3.path_launches = {"wgmma": 0, "general": 0, "fma": 0}
