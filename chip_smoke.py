@@ -9,7 +9,8 @@ ends the run with a non-zero exit code:
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``mudiff_torch/csrc`` (one nvcc per
    source, all started together), print the build time, and require a
-   GMMA (wgmma) instruction in K4's library (cuobjdump -sass);
+   GMMA (wgmma) instruction in K4's, K1's and both K3 libraries
+   (cuobjdump -sass);
 3. serve three requests through ``build_sampler``: G1 + G2 at
    ``brats_recipe(num_channels_dae=64, image_size=256)`` with seeded
    non-trivial weights, each request a batch of 4 slices through the
@@ -108,10 +109,17 @@ ends the run with a non-zero exit code:
    conv kernels.  The
    bound is the larger of bytes / HBM rate and operations / peak rate of
    the card.  K1's, K3's and K3's backward rows name their
-   design ("tc": bf16 / fp16 on the tensor cores, "fma": fp32 on the
-   CUDA cores) and every row and entry its share of the bound (bound ms
-   / ms, K2's bound ms / ms_cold).  K3's backward runs twice on the same
-   inputs and must give the same bits;
+   design, the path ``k1_path`` / ``k3_path`` picks ("wgmma": bf16 / fp16
+   on Hopper's wgmma and TMA; "general": bf16 / fp16 on mma.sync; "fma":
+   fp32 on the CUDA cores) and every row and entry its share of the bound
+   (bound ms / ms, K2's bound ms / ms_cold).  K3 is held in bf16, fp16
+   and fp32; where its path is "wgmma", its 64- and 128-query blocks must
+   give the same bits, and the general path's mma.sync kernels are held and
+   timed beside it through their entry points (``general_ms``).  K3's
+   backward runs twice on the same inputs (each path it runs) and must
+   give the same bits.  Every counted run checks K1's and K3's launches
+   by path against what ``k1_path`` / ``k3_path`` predict for its calls
+   (``k1_path_check``, ``k3_path_check``);
 10. the whole sample with the plain versions forced, same weights and
    injected noise: bf16 and fp32 differences against stated tolerances;
 11. best-of-N slices/s of one request, and one request under
@@ -531,11 +539,11 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
 
 
 def design_of(dtype, path: str | None = None) -> str:
-    """Which kernel a call runs: K1 names its path (``k1_path``: "wgmma",
-    bf16 / fp16 on Hopper's wgmma and TMA; "general", bf16 / fp16 on
-    mma.sync; "fma", fp32 on the CUDA cores); K3 and K3's backward (dkv
-    and dq alike) the kernel of their dtype, "tc" (bf16 and fp16, mma.sync
-    on the tensor cores) or "fma" (fp32)."""
+    """Which kernel a call runs: K1 and K3 (forward, dkv and dq) name their
+    path (``k1_path``, ``k3_path``: "wgmma", bf16 / fp16 on Hopper's wgmma
+    and TMA; "general", bf16 / fp16 on mma.sync; "fma", fp32 on the CUDA
+    cores); a kernel without paths the kernel of its dtype, "tc" or
+    "fma"."""
     import torch
 
     if path is not None:
@@ -571,6 +579,46 @@ def k1_path_check(tag: str, log, start: int = 0) -> dict:
     print(json.dumps({"run": tag, "k1_path_launches": got}), flush=True)
     if got != want or sum(got.values()) != ops.conv3x3.launches:
         raise AssertionError(f"{tag}: K1 by path {got} ({ops.conv3x3.launches} launches), "
+                             f"its calls' shapes predict {want}")
+    return got
+
+
+K3_WRAPPERS = ("flash_attn", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")
+
+
+def k3_expected_paths(log, start: int = 0) -> dict:
+    """K3's launches by wrapper and path that ``k3_path`` predicts for the
+    calls ``log`` recorded from ``start`` on: bf16 / fp16 at C = 256 on
+    "wgmma", other head dims on "general", fp32 on "fma"."""
+    from mudiff_torch import ops
+    from mudiff_torch.ops.flash_attn import k3_path_for
+
+    want = {n: dict.fromkeys(getattr(ops, n).path_launches, 0) for n in K3_WRAPPERS}
+    for name, key in log[start:]:
+        if name in want:
+            _, _, c, dtype = key
+            want[name][k3_path_for(c, dtype)] += 1
+    return want
+
+
+def k3_path_check(tag: str, log, start: int = 0) -> dict:
+    """K3's launches by wrapper and path since the counts were zeroed
+    (``path_launches`` of the forward, dkv and dq) against
+    ``k3_expected_paths`` of the run's calls, which must all have
+    launched, for each wrapper that launched at all (a run may hold a
+    kernel to its plain version, ``kernels_only``); printed when the run
+    launched K3, and raises on a difference."""
+    from mudiff_torch import ops
+
+    got = {n: dict(getattr(ops, n).path_launches) for n in K3_WRAPPERS}
+    want = {n: paths if getattr(ops, n).launches else dict.fromkeys(paths, 0)
+            for n, paths in k3_expected_paths(log, start).items()}
+    if any(getattr(ops, n).launches for n in K3_WRAPPERS):
+        print(json.dumps({"run": tag, "k3_path_launches": got}), flush=True)
+    if got != want or any(sum(got[n].values()) != getattr(ops, n).launches
+                          for n in K3_WRAPPERS):
+        raise AssertionError(f"{tag}: K3 by path {got} "
+                             f"({ {n: getattr(ops, n).launches for n in K3_WRAPPERS} }), "
                              f"its calls' shapes predict {want}")
     return got
 
@@ -749,10 +797,16 @@ def sdpa_call(q, k, v, scale):
 
 def flash_rows(shapes, peaks, card):
     """K3 at each shape: checks, times, bound.  ``shapes`` maps
-    (B, L, C, dtype) to its launch counts."""
+    (B, L, C, dtype) to its launch counts.  Each row names the kernel that
+    ``k3_path`` picks (``design``) and holds it against the plain version
+    in bf16, fp16 and fp32; where that is the wgmma path, the two block
+    sizes (64 and 128 queries) must give the same bits in bf16 and fp16,
+    and the general path's mma.sync kernel (through its entry point) is held and timed
+    too (``general_ms``), beside SDPA."""
     import torch
 
     from mudiff_torch.ops import flash_attn, flash_attn_plain
+    from mudiff_torch.ops.flash_attn import flash_attn_path, k3_path
 
     bf16_peak, fp32_peak, hbm = peaks
     g = torch.Generator(DEVICE).manual_seed(SEED + 3)
@@ -762,23 +816,44 @@ def flash_rows(shapes, peaks, card):
         # q at twice the scale of k: scores ~ N(0, 4), a peaked softmax
         q = 2.0 * torch.randn((b, length, c), generator=g, device=DEVICE)
         k, v = (torch.randn((b, length, c), generator=g, device=DEVICE) for _ in range(2))
-        errs = {}
-        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        errs, general = {}, {}
+        for tag, dt in (("bf16", torch.bfloat16), ("fp16", torch.float16),
+                        ("fp32", torch.float32)):
             qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
-            errs[tag] = check_close(f"flash_attn {(b, length, c)} {tag}",
-                                    flash_attn(qd, kd, vd, scale),
-                                    flash_attn_plain(qd, kd, vd, scale), *FLASH_TOL[tag])
+            want = flash_attn_plain(qd, kd, vd, scale)
+            tol = FLASH_TOL["fp32" if tag == "fp32" else "bf16"]
+            what = f"flash_attn {(b, length, c)} {tag}"
+            got = flash_attn(qd, kd, vd, scale)
+            errs[tag] = check_close(f"{what} ({k3_path(qd)})", got, want, *tol)
+            if k3_path(qd) == "wgmma":
+                blocks = [flash_attn_path(qd, kd, vd, scale, "wgmma", bq) for bq in (64, 128)]
+                if not (torch.equal(blocks[0], blocks[1]) and torch.equal(got, blocks[0])):
+                    raise AssertionError(f"{what}: 64- and 128-query blocks differ")
+                general[tag] = check_close(f"{what} (general)",
+                                           flash_attn_path(qd, kd, vd, scale, "general"),
+                                           want, *tol)
         # timed in the dtype the run gave this shape
         qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
         backend, library = sdpa_call(qd, kd, vd, scale)
         check_close(f"SDPA ({backend}) {(b, length, c)}", library(),
                     flash_attn_plain(qd, kd, vd, scale), *LIB_TOL)
         size = qd.element_size()
+        path = k3_path(qd)
+        extra = {}
+        if path == "wgmma":
+            extra = {"blocks_same_bits": True, "general_err_bf16": general["bf16"],
+                     "general_err_fp16": general["fp16"],
+                     "general_ms": time_ms(lambda: flash_attn_path(qd, kd, vd, scale,
+                                                                   "general")),
+                     "ms_block64": time_ms(lambda: flash_attn_path(qd, kd, vd, scale, "wgmma",
+                                                                   64)),
+                     "ms_block128": time_ms(lambda: flash_attn_path(qd, kd, vd, scale, "wgmma",
+                                                                    128))}
         rows.append(with_bound_share({
             "kernel": "flash_attn", "shape": [b, length, c], "dtype": str(dtype)[6:],
-            "design": design_of(dtype), **counts,
-            "err_bf16": errs["bf16"], "err_fp32": errs["fp32"],
-            "ms": time_ms(lambda: flash_attn(qd, kd, vd, scale)),
+            "design": design_of(dtype, path), **counts,
+            "err_bf16": errs["bf16"], "err_fp16": errs["fp16"], "err_fp32": errs["fp32"],
+            "ms": time_ms(lambda: flash_attn(qd, kd, vd, scale)), **extra,
             "plain_ms": time_ms(lambda: flash_attn_plain(qd, kd, vd, scale)),
             "library_ms": time_ms(library), "library": f"scaled_dot_product_attention ({backend})",
             "flop_ms": 4.0 * b * length * length * c
@@ -835,41 +910,50 @@ def flash_bwd_rows(shapes, peaks, card):
     (``{"flash_attn_bwd_dkv": {path: n}, "flash_attn_bwd_dq": ...}``).
     dkv must do 4 of the 5 products (s, dp, dv, dk), dq 3 (s, dp, dq);
     the pair does 10 B L^2 C flops once s and dp are shared.  Each dtype
-    runs both kernels twice: the second run must give the first's bits
-    (one owner per output element, no atomics)."""
+    (bf16, fp16, fp32) runs both kernels that ``k3_path`` picks twice: the
+    second run must give the first's bits (one owner per output element,
+    no atomics).  Where that is the wgmma path, the general path's mma.sync kernels
+    (through their entry points) are held, run twice and timed too
+    (``general_ms``)."""
     import torch
 
     from mudiff_torch.ops import (attn_di, flash_attn_bwd_dkv, flash_attn_bwd_dq,
                                   flash_attn_plain, plain_kernels, row_stats_plain)
+    from mudiff_torch.ops.flash_attn import flash_attn_bwd_path, k3_path
 
     bf16_peak, fp32_peak, hbm = peaks
     g = torch.Generator(DEVICE).manual_seed(SEED + 4)
+    names = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")
     rows = []
     for (b, length, c, dtype), counts in sorted(shapes.items(), key=str):
         scale = float(c) ** -0.5
         q = 2.0 * torch.randn((b, length, c), generator=g, device=DEVICE)
         k, v, do = (torch.randn((b, length, c), generator=g, device=DEVICE) for _ in range(3))
-        errs = {}
-        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        errs, general = {}, {}
+        for tag, dt in (("bf16", torch.bfloat16), ("fp16", torch.float16),
+                        ("fp32", torch.float32)):
             qd, kd, vd, dod = (t.to(dt) for t in (q, k, v, do))
             stats = row_stats_plain(qd, kd, scale)
             di = attn_di(flash_attn_plain(qd, kd, vd, scale), dod)
-            dk, dv = flash_attn_bwd_dkv(qd, kd, vd, dod, stats, di, scale)
-            dq = flash_attn_bwd_dq(qd, kd, vd, dod, stats, di, scale)
-            again = (*flash_attn_bwd_dkv(qd, kd, vd, dod, stats, di, scale),
-                     flash_attn_bwd_dq(qd, kd, vd, dod, stats, di, scale))
-            for what, first, second in zip(("dk", "dv", "dq"), (dk, dv, dq), again):
-                if not torch.equal(first, second):
-                    raise AssertionError(f"{what} {(b, length, c)} {tag}: two runs on the "
-                                         "same inputs differ")
             with plain_kernels():
                 pk, pv = flash_attn_bwd_dkv(qd, kd, vd, dod, stats, di, scale)
                 pq = flash_attn_bwd_dq(qd, kd, vd, dod, stats, di, scale)
-            tol = FLASH_BWD_TOL[tag]
-            what = f"{(b, length, c)} {tag}"
-            errs[tag] = {"dkv": max(check_rel(f"dk {what}", dk, pk, tol),
-                                    check_rel(f"dv {what}", dv, pv, tol)),
-                         "dq": check_rel(f"dq {what}", dq, pq, tol)}
+            tol = FLASH_BWD_TOL["fp32" if tag == "fp32" else "bf16"]
+            paths = [k3_path(qd)] + (["general"] if k3_path(qd) == "wgmma" else [])
+            for path in paths:
+                what = f"{(b, length, c)} {tag} ({path})"
+                runs = [(*flash_attn_bwd_path(names[0], qd, kd, vd, dod, stats, di, scale, path),
+                         flash_attn_bwd_path(names[1], qd, kd, vd, dod, stats, di, scale, path))
+                        for _ in range(2)]
+                for name, first, second in zip(("dk", "dv", "dq"), *runs):
+                    if not torch.equal(first, second):
+                        raise AssertionError(f"{name} {what}: two runs on the same inputs "
+                                             "differ")
+                dk, dv, dq = runs[0]
+                err = {"dkv": max(check_rel(f"dk {what}", dk, pk, tol),
+                                  check_rel(f"dv {what}", dv, pv, tol)),
+                       "dq": check_rel(f"dq {what}", dq, pq, tol)}
+                (errs if path == paths[0] else general)[tag] = err
         # timed in the dtype the run gave this shape
         qd, kd, vd, dod = (t.to(dtype) for t in (q, k, v, do))
         stats = row_stats_plain(qd, kd, scale)
@@ -886,18 +970,25 @@ def flash_bwd_rows(shapes, peaks, card):
         peak = bf16_peak if size == 2 else fp32_peak
         flop = 2.0 * b * length * length * c
         elems = b * length * c
+        path = k3_path(qd)
         for name, products, outputs, fn in (
                 ("flash_attn_bwd_dkv", 4, 2, flash_attn_bwd_dkv),
                 ("flash_attn_bwd_dq", 3, 1, flash_attn_bwd_dq)):
             def plain_fn(fn=fn):
                 with plain_kernels():
                     return fn(qd, kd, vd, dod, stats, di, scale)
+            extra = {}
+            if path == "wgmma":
+                extra = {"general_err_bf16": general["bf16"][name[15:]],
+                         "general_err_fp16": general["fp16"][name[15:]],
+                         "general_ms": time_ms(lambda name=name: flash_attn_bwd_path(
+                             name, qd, kd, vd, dod, stats, di, scale, "general"))}
             rows.append(with_bound_share({
                 "kernel": name, "shape": [b, length, c], "dtype": str(dtype)[6:],
-                "design": design_of(dtype), "bit_identical_reruns": True,
+                "design": design_of(dtype, path), "bit_identical_reruns": True,
                 **counts[name], "err_bf16": errs["bf16"][name[15:]],
-                "err_fp32": errs["fp32"][name[15:]],
-                "ms": time_ms(lambda fn=fn: fn(qd, kd, vd, dod, stats, di, scale)),
+                "err_fp16": errs["fp16"][name[15:]], "err_fp32": errs["fp32"][name[15:]],
+                "ms": time_ms(lambda fn=fn: fn(qd, kd, vd, dod, stats, di, scale)), **extra,
                 "plain_ms": time_ms(plain_fn),
                 "library_ms": library_ms,
                 "library": f"scaled_dot_product_attention backward ({backend}), dq dk dv",
@@ -1123,6 +1214,7 @@ def int8_phase(cfg, sampler, requests, x_init, noise, card) -> dict:
     launches = ops.launch_counts()
     paths = dict(ops.int8_conv3x3.path_launches)
     k1_paths = k1_path_check("int8 sampler", log)
+    k3_path_check("int8 sampler", log)
     print(json.dumps({"int8_launch_counts": launches, "expected": expected,
                       "k4_path_launches": paths, "request_s": seconds}), flush=True)
     if launches != expected or not launches["int8_conv3x3"]:
@@ -1281,8 +1373,10 @@ def kernel_summary(name, rows, launches, path=None):
     designs = sorted({r["design"] for r in mine if r[path] and "design" in r})
     if designs:
         entry["design"] = "+".join(designs)
-    if all("general_ms" in r for r in mine):  # K4: its general path and K1 beside it
-        for key in ("general_ms", "general_quantize_ms", "general_gemm_ms", "k1_bf16_ms"):
+    if any("general_ms" in r for r in mine):  # the mma.sync kernels beside wgmma (K3, K4)
+        entry["general_ms"] = sum(r[path] * r.get("general_ms", r["ms"]) for r in mine)
+    if all("general_quantize_ms" in r for r in mine):  # K4: its general path and K1 beside it
+        for key in ("general_quantize_ms", "general_gemm_ms", "k1_bf16_ms"):
             entry[key] = total(key)
         entry["paths"] = sorted({r["path"] for r in mine if r[path]})
     return entry
@@ -1438,6 +1532,7 @@ def run_volume(cfg, workdir: str, tag: str, extra=(), plain=False, record=None, 
         seconds = time.perf_counter() - t
     if not plain:
         k1_path_check(f"volume {tag}", log, start)
+        k3_path_check(f"volume {tag}", log, start)
     return check_volume(path), seconds, ops.launch_counts()
 
 
@@ -1856,6 +1951,7 @@ def training_phase(cfg, card) -> dict:
             metrics.append({k: float(v) for k, v in m.items()} | {"R1_step": with_r1})
     launches = ops.launch_counts()
     k1_path_check("training", log)
+    k3_path_check("training", log)
     print(json.dumps({"phase": "training", "launch_counts": launches, "expected": expected,
                       "iteration_s": seconds, "losses": metrics}), flush=True)
     if launches != expected:
@@ -2034,6 +2130,7 @@ def counted(log, fn, tag: str = "counted run"):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
     k1_path_check(tag, log, start)
+    k3_path_check(tag, log, start)
     return out, ops.launch_counts(), seconds
 
 
@@ -2434,6 +2531,7 @@ def mesh_step_check(card) -> dict:
             with ops.record_calls(k1_log):
                 m_losses, m_grads, m_s = leg(ours)
             k1_path_check("phase 13 mesh step", k1_log)
+            k3_path_check("phase 13 mesh step", k1_log)
             b_losses, b_grads, b_s = leg(plain)
         warned = flagged(caught)
         vs_plain = grad_distance("mesh step", m_grads, m_losses, a_grads, a_losses)
@@ -2754,6 +2852,7 @@ def remat_table(cfg, card, log) -> dict:
             losses, grads, counts = iteration_grads(state, batch, draws, plain=False)
         logged = ops.launch_counts()  # the D + G iteration and R1 alone, as ``log``
         k1_path_check(f"remat {tag}", log, start)
+        k3_path_check(f"remat {tag}", log, start)
         repeat = None
         if policy is None:  # the floor: the same iteration again, no remat
             r_losses, r_grads, _ = iteration_grads(state, batch, draws, plain=False)
@@ -3527,9 +3626,12 @@ def main(argv=None) -> int:
     build = {"build_s": time.perf_counter() - t0,
              "per_library_s": {k: v["seconds"] for k, v in built.items()},
              "k4_gmma_instructions": sass_count(_build.library_path("int8_conv"), "GMMA"),
-             "k1_gmma_instructions": sass_count(_build.library_path("conv3x3"), "GMMA")}
+             "k1_gmma_instructions": sass_count(_build.library_path("conv3x3"), "GMMA"),
+             "k3_gmma_instructions": sass_count(_build.library_path("flash_attn"), "GMMA"),
+             "k3_bwd_gmma_instructions": sass_count(_build.library_path("flash_attn_bwd"),
+                                                    "GMMA")}
     print(json.dumps(build), flush=True)
-    for k in ("K4", "K1"):
+    for k in ("K4", "K1", "K3", "K3_bwd"):
         if not build[f"{k.lower()}_gmma_instructions"]:
             raise AssertionError(f"{k}'s library holds no GMMA (wgmma) instruction")
 
@@ -3554,6 +3656,7 @@ def main(argv=None) -> int:
             seconds.append(time.perf_counter() - t)
     launches = ops.launch_counts()
     k1_path_check("main path", log)
+    k3_path_check("main path", log)
     per_sample = sampler.kernel_launches_per_sample()
     expected = {k: REQUESTS * v for k, v in per_sample.items()}
     print(json.dumps({"launch_counts": launches, "expected": expected,

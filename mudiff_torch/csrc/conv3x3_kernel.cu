@@ -878,18 +878,6 @@ cudaError_t launch_conv(const CUtensorMap& xmap, const CUtensorMap& wmap, const 
   return cudaGetLastError();
 }
 
-// The current device's SMs, read once (0 if the query fails).
-int sm_count() {
-  static int count = -1;
-  if (count < 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      count = 0;
-  }
-  return count;
-}
-
 template <typename T>
 int conv(const void* x, const void* w, const float* bias, void* out, int batch, int height,
          int width, int cin, int cout, cudaStream_t stream) {
@@ -906,7 +894,7 @@ int conv(const void* x, const void* w, const float* bias, void* out, int batch, 
   // m64n128 where Cout allows and the grid still gives each SM a block,
   // else m64n64 (twice the blocks); an output's sum is the same either way
   const long long m_tiles = (long long)batch * p.tiles_h * p.tiles_w;
-  const bool wide = cout % 128 == 0 && m_tiles * (cout / 128) >= sm_count();
+  const bool wide = cout % 128 == 0 && m_tiles * (cout / 128) >= tc::sm_count();
   p.tiles_n = (cout + (wide ? 127 : 63)) / (wide ? 128 : 64);
   p.chunks = (cin + BK - 1) / BK;
   p.height = height, p.width = width, p.cin = cin, p.cout = cout;

@@ -31,10 +31,31 @@
 //
 // As on the TPU, two kernels, so that every output element has one owner:
 // no atomics, and the same inputs give the same bits on every run.  Each
-// has two versions, chosen by dtype in dispatch():
+// has three versions; the wrapper (ops/flash_attn.py k3_path) picks one
+// before any launch, from the head dim and dtype:
 //
-// * bf16 / fp16: flash_attn_bwd_{dkv,dq}_kernel_tc, FlashAttention-2's
-//   backward on the tensor cores.  Every product is mma.sync.m16n8k16 on
+// * "wgmma", bf16 / fp16 at C = 256 (the recipe's head dim, nf = 64):
+//   flash_attn_bwd_{dkv,dq}_kernel_wgmma, entry points
+//   mudiff_flash_attn_bwd_{dkv,dq}_wgmma (namespace wgmma below), on
+//   Hopper's warpgroup MMA fed by TMA (3-D tensor maps over (C, L, B),
+//   64-channel boxes, the 128-byte swizzle, zero fill past L).  dkv: a
+//   block owns 64 keys (K, V resident) and walks the query steps through a
+//   two-stage ring of Q / dO tiles with their m, 1/l, di; warpgroup 0
+//   computes S^T = K Q^T, P^T in fp32 and dV += round(P^T) dO, and hands
+//   the fp32 P^T to warpgroup 1 through shared memory (named barriers),
+//   which computes dP^T = V dO^T, dS^T and dK += round(dS^T) Q.  The two
+//   accumulators (dK, dV: 256 fp32 registers a thread in one warpgroup)
+//   are split between the warpgroups.  dq: a block owns 64 queries (Q, dO
+//   resident) in one consumer warpgroup beside a producer warpgroup that
+//   streams K / V tile pairs; S and dP as two commit groups of SS
+//   m64n64k16, p formed while dP's products run, dQ += round(dS) K as RS
+//   m64n256k16 with K read MN-major.  Scores are SS products on K-major
+//   descriptors, the m64n256 products read their B MN-major: no transposed
+//   copy of any operand.
+//
+// * "general", bf16 / fp16 at other head dims (C = 512 at nf = 128):
+//   flash_attn_bwd_{dkv,dq}_kernel_tc, FlashAttention-2's backward on the
+//   tensor cores.  Every product is mma.sync.m16n8k16 on
 //   ldmatrix fragments: 16-bit operands, fp32 sums.  Operands stay 16-bit
 //   in shared memory, copied in by cp.async (zero-filled past L and past
 //   C).  A block of 8 warps owns OWN rows of one side, in row groups of
@@ -65,8 +86,8 @@
 //   mma, and at C = 512 more; one block of 8 warps an SM leaves little to
 //   hide latency with; outputs are stored 4 bytes a thread.
 //
-// * fp32: flash_attn_bwd_{dkv,dq}_kernel_fma, on the CUDA cores in fp32
-//   FMA (TF32 would miss the fp32 tolerance).  dkv: one block of 256
+// * "fma", fp32: flash_attn_bwd_{dkv,dq}_kernel_fma, on the CUDA cores in
+//   fp32 FMA (TF32 would miss the fp32 tolerance).  dkv: one block of 256
 //   threads owns BK keys of one batch row; K and V of those keys stay in
 //   shared memory (fp32) and the block walks over all queries in tiles of
 //   BQ.  Per tile: load Q and dO and the rows' m, 1/l and di; (1) each
@@ -83,12 +104,16 @@
 // ds = 0, so they add nothing, and their rows are not stored; columns
 // past C are zero in shared memory and not stored.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_wgmma.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -716,6 +741,440 @@ flash_attn_bwd_dq_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
 
 }  // namespace tcbwd
 
+// ----------------------------------------- bf16/fp16 wgmma + TMA (Hopper)
+
+namespace wgmma {
+
+using namespace k3w;  // tiles, descriptors, the m64n64 / m64n256 products
+using tc::mbar_arrive;
+using tc::mbar_expect_tx;
+using tc::mbar_init;
+
+constexpr int OWN_ROWS = 64;          // keys a dkv block owns, queries a dq block owns
+constexpr int STEP_ROWS = 64;         // queries (dkv) or keys (dq) a step of the walk
+constexpr int DKV_THREADS = 256;      // WG 0: S^T, P^T, dV; WG 1: dP^T, dS^T, dK, and the loads
+constexpr int DKV_STAGES = 2;         // Q / dO tiles, with their m, 1/l, di, in the ring
+constexpr int STAT_THREADS = 64;      // WG 1's threads that stage a step's m, 1/l, di
+constexpr int DQ_THREADS = 256;       // WG 0: S, dP, dS, dQ; WG 1: the producer (its thread 0)
+constexpr int DQ_STAGES = 2;          // K / V tile pairs in the ring
+constexpr int STAT_BYTES = 1024;      // m, 1/l, di of a step's 64 queries (768 bytes), padded
+constexpr int P_BYTES = 16384;        // the fp32 P^T tile WG 0 hands WG 1 (64 x 64)
+constexpr int P_FULL = 1;             // named barrier: P^T written (WG 0 arrives, WG 1 waits)
+constexpr int P_EMPTY = 2;            // named barrier: P^T read (WG 1 arrives, WG 0 waits)
+constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory a block may use
+
+constexpr int DKV_STAGE_BYTES = 2 * TILE_BYTES + STAT_BYTES;
+// alignment slack, K and V, the ring, P^T, the barriers (kv, full, empty)
+constexpr int DKV_SMEM = 1024 + 2 * TILE_BYTES + DKV_STAGES * DKV_STAGE_BYTES + P_BYTES +
+                         (1 + 2 * DKV_STAGES) * 8;
+// alignment slack, Q and dO, the ring, the barriers (q, full, empty)
+constexpr int DQ_SMEM =
+    1024 + 2 * TILE_BYTES + DQ_STAGES * 2 * TILE_BYTES + (1 + 2 * DQ_STAGES) * 8;
+static_assert(OWN_ROWS == TILE_ROWS && STEP_ROWS == TILE_ROWS, "m64 tiles");
+static_assert(DKV_SMEM <= SMEM_LIMIT && DQ_SMEM <= SMEM_LIMIT, "a block exceeds 227 KB");
+static_assert(DKV_STAGE_BYTES % 1024 == 0 && 3 * STEP_ROWS * 4 <= STAT_BYTES, "stage layout");
+static_assert(P_BYTES == OWN_ROWS * STEP_ROWS * 4, "one fp32 score tile");
+static_assert(DKV_THREADS == 2 * WG_THREADS && DQ_THREADS == 2 * WG_THREADS, "roles");
+static_assert(STAT_THREADS == STEP_ROWS, "one thread a query's statistics");
+// Registers: an SM's four schedulers each hold a quarter of the register
+// file, and a block's warps are dealt to them in turn, so a block of 9
+// warps (two warpgroups and a producer warp) keeps 16384 / (3 x 32) = 168
+// registers a thread, too few for dkv's 128 fp32 accumulators, 32 scores
+// and 16 A registers beside their addresses (setmaxnreg does not raise
+// what ptxas compiles for).  So dkv has no producer (its warpgroup 1
+// issues the loads), and dq's producer is a whole warpgroup: 8 warps, two
+// on each scheduler, keep up to 255 registers a thread.
+
+struct Params {
+  const float *m, *l, *di;  // (B, L) fp32
+  void *d0, *d1;            // dkv: dk, dv; dq: dq
+  int L;
+  float scale;
+};
+
+// The accumulator (64 rows x 256 columns, fp32) rounded to T into rows
+// row0 + acc_row of an (L, 256) matrix; rows past L are not stored.
+template <typename T>
+__device__ __forceinline__ void store_acc(T* out, const float (&acc)[128], int row0, int L,
+                                          int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + acc_row(t, 2 * h);
+    if (row >= L) continue;
+    T* orow = out + (size_t)row * HEAD_DIM;
+#pragma unroll
+    for (int j = 0; j < HEAD_DIM / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + acc_col(t, 4 * j)) =
+          tc::pack2<T>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// dK, dV of keys k0 .. k0 + 63 of batch row b.  K and V stay in shared
+// memory; the query steps (Q, dO by TMA; m, 1/l, di staged by WG 1's first
+// STAT_THREADS threads, zero past L) come through a DKV_STAGES ring.  Per
+// step WG 0 computes S^T = K Q^T (SS m64n64k16), P^T = exp(s scale - m) /
+// l in fp32, hands the fp32 P^T to WG 1 through shared memory (in its own
+// fragment order: WG 1's dP^T accumulator has the same layout), rounds it
+// into register A and adds dV += P^T dO (RS m64n256k16, dO MN-major);
+// WG 1 computes dP^T = V dO^T, dS^T = (dP^T - di) P^T scale, rounds it and
+// adds dK += dS^T Q.  WG 1, which takes P^T from WG 0 and so finishes a
+// step after it, refills a slot once both have released it, while its
+// next dP^T runs, and reads each step's statistics a step before it
+// stages them.  Each output element has one owner and one summation
+// order: no atomics.
+template <typename T>
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+flash_attn_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const __grid_constant__ CUtensorMap domap, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = smem;
+  unsigned char* vs = ks + TILE_BYTES;
+  unsigned char* ring = vs + TILE_BYTES;  // DKV_STAGES of (Q, dO, statistics)
+  float* pt = reinterpret_cast<float*>(ring + DKV_STAGES * DKV_STAGE_BYTES);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(pt + P_BYTES / 4);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + DKV_STAGES;
+
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.x * OWN_ROWS;
+  const int steps = (p.L + STEP_ROWS - 1) / STEP_ROWS;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int t = threadIdx.x % WG_THREADS;
+  const int lane = t & 31;
+  const size_t sbase = (size_t)b * p.L;
+
+  // WG 1's first STAT_THREADS threads read the statistics of query t of
+  // step i (clamped past L) a step before they stage them
+  float next_m = 0.f, next_l = 1.f, next_di = 0.f;
+  auto fetch = [&](int i) {
+    const int qi = i * STEP_ROWS + t;
+    const size_t at = sbase + (qi < p.L ? qi : p.L - 1);
+    next_m = p.m[at];
+    next_l = p.l[at];
+    next_di = p.di[at];
+  };
+  // step i into slot s: WG 1's thread 0 issues the TMA loads, its first
+  // STAT_THREADS threads stage the fetched statistics (m, 1 / l, di, zero
+  // past L); each of them arrives
+  auto load_step = [&](int i, int s) {
+    unsigned char* st = ring + s * DKV_STAGE_BYTES;
+    if (t == 0) {
+      mbar_expect_tx(&full[s], 2 * TILE_BYTES);
+      for (int a = 0; a < ATOMS; ++a) {
+        tc::tma_load_3d(st + a * ATOM_BYTES, &qmap, &full[s], a * ATOM_C, i * STEP_ROWS, b);
+        tc::tma_load_3d(st + TILE_BYTES + a * ATOM_BYTES, &domap, &full[s], a * ATOM_C,
+                        i * STEP_ROWS, b);
+      }
+    }
+    float* sf = reinterpret_cast<float*>(st + 2 * TILE_BYTES);
+    const bool ok = i * STEP_ROWS + t < p.L;
+    sf[t] = ok ? next_m : 0.f;
+    sf[STEP_ROWS + t] = ok ? 1.f / next_l : 0.f;
+    sf[2 * STEP_ROWS + t] = ok ? next_di : 0.f;
+    mbar_arrive(&full[s]);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(&full[s], 1 + STAT_THREADS);  // the TMA bytes' arrival, the statistics'
+      mbar_init(&empty[s], 8);                // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 1) {
+    if (t == 0) {
+      mbar_expect_tx(kv_full, 2 * TILE_BYTES);
+      for (int a = 0; a < ATOMS; ++a) {
+        tc::tma_load_3d(ks + a * ATOM_BYTES, &kmap, kv_full, a * ATOM_C, k0, b);
+        tc::tma_load_3d(vs + a * ATOM_BYTES, &vmap, kv_full, a * ATOM_C, k0, b);
+      }
+    }
+    if (t < STAT_THREADS) {
+      for (int i = 0; i < DKV_STAGES && i < steps; ++i) {
+        fetch(i);
+        load_step(i, i);
+      }
+    }
+  }
+
+  bool key_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) key_ok[h] = k0 + acc_row(t, 2 * h) < p.L;
+  // the scores' A (K for S^T, V for dP^T)
+  const uint32_t own = tc::smem_u32(wg == 0 ? ks : vs);
+  const uint32_t ring0 = tc::smem_u32(ring);
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  uint32_t a[4][4];
+
+  wait_phase(kv_full, 0);
+  int s = 0, phase = 0;
+  for (int i = 0; i < steps; ++i) {
+    wait_phase(&full[s], phase);
+    const uint32_t q_tile = ring0 + s * DKV_STAGE_BYTES;
+    const uint32_t do_tile = q_tile + TILE_BYTES;
+    const float* sf =
+        reinterpret_cast<const float*>(ring + s * DKV_STAGE_BYTES + 2 * TILE_BYTES);
+    // WG 0: S^T = K Q^T; WG 1: dP^T = V dO^T (keys x queries)
+    float sc[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] = 0.f;
+    const uint32_t other = wg == 0 ? q_tile : do_tile;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HEAD_DIM / 16; ++kk)
+      mma_ss<T>(sc, kmajor_desc(own, kk), kmajor_desc(other, kk), kk);
+    tc::wgmma_commit();
+    if (wg == 1 && t < STAT_THREADS) {
+      // under dP^T: the slot of step i - 1 takes step i + 1 once both
+      // warpgroups left it; then the statistics of step i + 2 are read
+      if (i >= 1 && i + 1 < steps) {
+        const int slot = (i + 1) % DKV_STAGES;  // step i + 1's, step i - 1's
+        wait_phase(&empty[slot], ((i - 1) / DKV_STAGES) & 1);
+        load_step(i + 1, slot);
+      }
+      if (i + DKV_STAGES < steps) fetch(i + DKV_STAGES);
+    }
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < 32; ++x) tc::fence_reg(sc[x]);
+
+    if (wg == 0) {
+      // P^T in fp32, queries along the columns; handed to WG 1 as is.
+      // exp runs on every element and a select masks it (a branch per
+      // element would serialize the 32 exps)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int qi = acc_col(t, x);
+        const float pv = expf(sc[x] * p.scale - sf[qi]) * sf[STEP_ROWS + qi];
+        sc[x] = key_ok[(x >> 1) & 1] ? pv : 0.f;
+      }
+      if (i > 0) tc::named_sync(P_EMPTY, 2 * WG_THREADS);
+#pragma unroll
+      for (int v = 0; v < 8; ++v)
+        *reinterpret_cast<float4*>(pt + (v * WG_THREADS + t) * 4) =
+            make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
+      tc::named_arrive(P_FULL, 2 * WG_THREADS);
+    } else {
+      // dS^T = (dP^T - di) P^T scale
+      tc::named_sync(P_FULL, 2 * WG_THREADS);
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const float4 pv = *reinterpret_cast<const float4*>(pt + (v * WG_THREADS + t) * 4);
+        const float pp[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * v + e;
+          sc[x] = (sc[x] - sf[2 * STEP_ROWS + acc_col(t, x)]) * pp[e] * p.scale;
+        }
+      }
+      if (i + 1 < steps) tc::named_arrive(P_EMPTY, 2 * WG_THREADS);
+    }
+    to_a<T>(a, sc);
+
+    // WG 0: dV += round(P^T) dO; WG 1: dK += round(dS^T) Q
+    const uint32_t bt = wg == 0 ? do_tile : q_tile;
+#pragma unroll
+    for (int x = 0; x < 128; ++x) tc::fence_reg(acc[x]);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < STEP_ROWS / 16; ++kk) mma_rs<T>(acc, a[kk], mn_desc(bt, kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < 128; ++x) tc::fence_reg(acc[x]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tc::fence_reg(a[kk][e]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (++s == DKV_STAGES) s = 0, phase ^= 1;
+  }
+
+  T* out = static_cast<T*>(wg == 0 ? p.d1 : p.d0) + sbase * HEAD_DIM;
+  store_acc<T>(out, acc, k0, p.L, t);
+}
+
+// dQ of queries q0 .. q0 + 63 of batch row b.  Q and dO stay in shared
+// memory; the producer warp streams K and V of every key step through
+// the ring.  Per step the consumer warpgroup computes S = Q K^T and dP =
+// dO V^T (two commit groups of SS m64n64k16; p is formed while dP's
+// products run), dS = (dP - di) p scale, rounds it into register A and
+// adds dQ += dS K (RS m64n256k16, K MN-major).  Its rows' m, 1/l and di
+// stay in registers.
+template <typename T>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_attn_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap domap, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;
+  unsigned char* dos = qs + TILE_BYTES;
+  unsigned char* ring = dos + TILE_BYTES;  // DQ_STAGES of (K, V)
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + DQ_STAGES * 2 * TILE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + DQ_STAGES;
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * OWN_ROWS;
+  const int steps = (p.L + STEP_ROWS - 1) / STEP_ROWS;
+  const int t = threadIdx.x % WG_THREADS;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG_THREADS) {
+    // ---- producer
+    if (t == 0) {
+      mbar_expect_tx(q_full, 2 * TILE_BYTES);
+      for (int a = 0; a < ATOMS; ++a) {
+        tc::tma_load_3d(qs + a * ATOM_BYTES, &qmap, q_full, a * ATOM_C, q0, b);
+        tc::tma_load_3d(dos + a * ATOM_BYTES, &domap, q_full, a * ATOM_C, q0, b);
+      }
+      int s = 0, phase = 0;
+      for (int i = 0; i < steps; ++i) {
+        wait_phase(&empty[s], phase ^ 1);
+        unsigned char* st = ring + s * 2 * TILE_BYTES;
+        mbar_expect_tx(&full[s], 2 * TILE_BYTES);
+        for (int a = 0; a < ATOMS; ++a) {
+          tc::tma_load_3d(st + a * ATOM_BYTES, &kmap, &full[s], a * ATOM_C, i * STEP_ROWS, b);
+          tc::tma_load_3d(st + TILE_BYTES + a * ATOM_BYTES, &vmap, &full[s], a * ATOM_C,
+                          i * STEP_ROWS, b);
+        }
+        if (++s == DQ_STAGES) s = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumer
+  const int lane = t & 31;
+  const size_t sbase = (size_t)b * p.L;
+  float mq[2], il[2], dqi[2];
+  bool q_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + acc_row(t, 2 * h);
+    q_ok[h] = row < p.L;
+    mq[h] = q_ok[h] ? p.m[sbase + row] : 0.f;
+    il[h] = q_ok[h] ? 1.f / p.l[sbase + row] : 0.f;
+    dqi[h] = q_ok[h] ? p.di[sbase + row] : 0.f;
+  }
+  const uint32_t q_tile = tc::smem_u32(qs), do_tile = tc::smem_u32(dos);
+  const uint32_t ring0 = tc::smem_u32(ring);
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  uint32_t a[4][4];
+
+  wait_phase(q_full, 0);
+  int s = 0, phase = 0;
+  for (int i = 0; i < steps; ++i) {
+    const int k0 = i * STEP_ROWS;
+    wait_phase(&full[s], phase);
+    const uint32_t k_tile = ring0 + s * 2 * TILE_BYTES;
+    const uint32_t v_tile = k_tile + TILE_BYTES;
+    float sc[32], dp[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.f;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HEAD_DIM / 16; ++kk)
+      mma_ss<T>(sc, kmajor_desc(q_tile, kk), kmajor_desc(k_tile, kk), kk);
+    tc::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HEAD_DIM / 16; ++kk)
+      mma_ss<T>(dp, kmajor_desc(do_tile, kk), kmajor_desc(v_tile, kk), kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();  // S is done; dP's products run on
+#pragma unroll
+    for (int x = 0; x < 32; ++x) tc::fence_reg(sc[x]);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {  // exp on every element, masked by a select
+      const int h = (x >> 1) & 1;
+      const float pv = expf(sc[x] * p.scale - mq[h]) * il[h];
+      sc[x] = k0 + acc_col(t, x) < p.L && q_ok[h] ? pv : 0.f;
+    }
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < 32; ++x) tc::fence_reg(dp[x]);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) dp[x] = (dp[x] - dqi[(x >> 1) & 1]) * sc[x] * p.scale;
+    to_a<T>(a, dp);
+
+    // dQ += round(dS) K
+#pragma unroll
+    for (int x = 0; x < 128; ++x) tc::fence_reg(acc[x]);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < STEP_ROWS / 16; ++kk) mma_rs<T>(acc, a[kk], mn_desc(k_tile, kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < 128; ++x) tc::fence_reg(acc[x]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tc::fence_reg(a[kk][e]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (++s == DQ_STAGES) s = 0, phase ^= 1;
+  }
+
+  store_acc<T>(static_cast<T*>(p.d0) + sbase * HEAD_DIM, acc, q0, p.L, t);
+}
+
+template <typename T>
+int launch(bool dkv, const void* q, const void* k, const void* v, const void* dout,
+           const Params& p, int batch, cudaStream_t stream) {
+  const bool half = std::is_same<T, __half>::value;
+  CUtensorMap qmap, kmap, vmap, domap;
+  int rc = encode_rows(&qmap, q, half, batch, p.L, HEAD_DIM);
+  if (rc == 0) rc = encode_rows(&kmap, k, half, batch, p.L, HEAD_DIM);
+  if (rc == 0) rc = encode_rows(&vmap, v, half, batch, p.L, HEAD_DIM);
+  if (rc == 0) rc = encode_rows(&domap, dout, half, batch, p.L, HEAD_DIM);
+  if (rc != 0) return rc;
+  const dim3 grid((p.L + OWN_ROWS - 1) / OWN_ROWS, batch);
+  if (dkv) {
+    auto kernel = flash_attn_bwd_dkv_kernel_wgmma<T>;
+    static bool configured = false;  // once per instance
+    if (!configured) {
+      const cudaError_t err = configure(kernel, DKV_SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      configured = true;
+    }
+    kernel<<<grid, DKV_THREADS, DKV_SMEM, stream>>>(qmap, kmap, vmap, domap, p);
+  } else {
+    auto kernel = flash_attn_bwd_dq_kernel_wgmma<T>;
+    static bool configured = false;  // once per instance
+    if (!configured) {
+      const cudaError_t err = configure(kernel, DQ_SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      configured = true;
+    }
+    kernel<<<grid, DQ_THREADS, DQ_SMEM, stream>>>(qmap, kmap, vmap, domap, p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgmma
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *m, *l, *di;
@@ -733,10 +1192,14 @@ cudaError_t launch(bool dkv, const Args& a, cudaStream_t stream) {
   if (dkv) {
     constexpr size_t smem = dkv_smem_floats<CMAX>() * sizeof(float);
     static_assert(smem <= 232448, "tile exceeds the 227 KB a block may use");
-    cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dkv_kernel_fma<CMAX>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+    static bool configured = false;  // once per instance
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dkv_kernel_fma<CMAX>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
     constexpr int BK = DkvTile<CMAX>::BK;
     const dim3 grid((a.L + BK - 1) / BK, a.batch);
     flash_attn_bwd_dkv_kernel_fma<CMAX><<<grid, THREADS, smem, stream>>>(
@@ -745,10 +1208,14 @@ cudaError_t launch(bool dkv, const Args& a, cudaStream_t stream) {
   } else {
     constexpr size_t smem = dq_smem_floats<CMAX>() * sizeof(float);
     static_assert(smem <= 232448, "tile exceeds the 227 KB a block may use");
-    cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dq_kernel_fma<CMAX>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+    static bool configured = false;  // once per instance
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dq_kernel_fma<CMAX>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
     constexpr int BQ = DqTile<CMAX>::BQ;
     const dim3 grid((a.L + BQ - 1) / BQ, a.batch);
     flash_attn_bwd_dq_kernel_fma<CMAX><<<grid, THREADS, smem, stream>>>(
@@ -768,18 +1235,26 @@ cudaError_t launch(bool dkv, const Args& a, cudaStream_t stream) {
   using TL = Tile<CMAX>;
   const dim3 grid((a.L + TL::OWN - 1) / TL::OWN, a.batch);
   if (dkv) {
-    cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dkv_kernel_tc<T, CMAX>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(TL::DKV_SMEM));
-    if (err != cudaSuccess) return err;
+    static bool configured = false;  // once per instance
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dkv_kernel_tc<T, CMAX>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(TL::DKV_SMEM));
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
     flash_attn_bwd_dkv_kernel_tc<T, CMAX><<<grid, THREADS, TL::DKV_SMEM, stream>>>(
         q, k, v, dout, a.m, a.l, a.di, static_cast<T*>(a.d0), static_cast<T*>(a.d1), a.L,
         a.C, a.scale);
   } else {
-    cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dq_kernel_tc<T, CMAX>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(TL::DQ_SMEM));
-    if (err != cudaSuccess) return err;
+    static bool configured = false;  // once per instance
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(flash_attn_bwd_dq_kernel_tc<T, CMAX>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(TL::DQ_SMEM));
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
     flash_attn_bwd_dq_kernel_tc<T, CMAX><<<grid, THREADS, TL::DQ_SMEM, stream>>>(
         q, k, v, dout, a.m, a.l, a.di, static_cast<T*>(a.d0), a.L, a.C, a.scale);
   }
@@ -795,6 +1270,25 @@ cudaError_t launch_class(bool dkv, const Args& a, int dtype, cudaStream_t s) {
     case 0: return ffma::launch<CMAX>(dkv, a, s);
     case 1: return tcbwd::launch<__nv_bfloat16, CMAX>(dkv, a, s);
     default: return tcbwd::launch<__half, CMAX>(dkv, a, s);
+  }
+}
+
+// The wgmma kernels at C = 256, bf16 (dtype 1) or fp16 (2); 16-byte
+// aligned tensors (the tensor maps' addresses).
+int dispatch_wgmma(bool dkv, const Args& a, int dtype, void* stream) {
+  if (a.batch <= 0 || a.batch > 65535 || a.L <= 0 || a.C != k3w::HEAD_DIM || a.m == nullptr ||
+      a.l == nullptr || a.di == nullptr ||
+      (reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout) |
+       reinterpret_cast<uintptr_t>(a.d0) | reinterpret_cast<uintptr_t>(dkv ? a.d1 : a.d0)) %
+              16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const wgmma::Params p{a.m, a.l, a.di, a.d0, a.d1, a.L, a.scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1: return wgmma::launch<__nv_bfloat16>(dkv, a.q, a.k, a.v, a.dout, p, a.batch, s);
+    case 2: return wgmma::launch<__half>(dkv, a.q, a.k, a.v, a.dout, p, a.batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -831,4 +1325,25 @@ extern "C" int mudiff_flash_attn_bwd_dq(const void* q, const void* k, const void
                                         float scale, int dtype, void* stream) {
   const Args a{q, k, v, dout, m, l, di, dq, nullptr, batch, L, C, scale};
   return dispatch(false, a, dtype, stream);
+}
+
+// The wgmma paths: the same arguments as mudiff_flash_attn_bwd_dkv / _dq
+// with C = 256 and dtype 1 (bfloat16) or 2 (float16).  Return 0, a
+// cudaError_t, 10000 (no cuTensorMapEncodeTiled in the driver) or 20000 +
+// CUresult (a tensor map refused).
+extern "C" int mudiff_flash_attn_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                                               const void* dout, const float* m, const float* l,
+                                               const float* di, void* dk, void* dv, int batch,
+                                               int L, int C, float scale, int dtype,
+                                               void* stream) {
+  const Args a{q, k, v, dout, m, l, di, dk, dv, batch, L, C, scale};
+  return dispatch_wgmma(true, a, dtype, stream);
+}
+
+extern "C" int mudiff_flash_attn_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                                              const void* dout, const float* m, const float* l,
+                                              const float* di, void* dq, int batch, int L,
+                                              int C, float scale, int dtype, void* stream) {
+  const Args a{q, k, v, dout, m, l, di, dq, nullptr, batch, L, C, scale};
+  return dispatch_wgmma(false, a, dtype, stream);
 }

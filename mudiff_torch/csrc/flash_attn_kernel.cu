@@ -17,12 +17,35 @@
 //
 // What bounds it on an H100: operations.  Per batch row it does 4 L^2 C
 // flops on 4 L C elements, i.e. L = 4096 flops per element moved, far
-// above the card's ridge.
+// above the card's ridge.  Inside a block the limits are the L2 -> shared
+// traffic of the K / V tiles (64 flops a byte for 64 queries a block, 128
+// for 128) and the softmax between the two products.
 //
-// Two hand-written kernels, chosen by dtype in mudiff_flash_attn:
+// Three hand-written kernels; the wrapper (ops/flash_attn.py k3_path)
+// picks one before any launch, from the head dim and dtype:
 //
-// * bf16 / fp16: flash_attn_kernel_tc, FlashAttention-2 on the tensor
-//   cores.  A block owns BQ = 64 queries of one batch row, four row groups
+// * "wgmma", bf16 / fp16 at C = 256 (the recipe's head dim, nf = 64):
+//   flash_attn_kernel_wgmma, entry point mudiff_flash_attn_wgmma, on
+//   Hopper's warpgroup MMA fed by TMA (namespace wgmma below).  A block is
+//   one or two consumer warpgroups of 64 queries each (128-query blocks
+//   where the grid still gives each SM a block, else 64-query blocks, two
+//   an SM: the same bits either way).  TMA brings the Q tiles and a ring
+//   of K and V tiles through 3-D tensor maps over (C, L, B) as 64-channel
+//   boxes with the 128-byte swizzle, zero-filled past L of the batch row
+//   (never the next row's keys).  Per key tile of 64: S = Q K^T as 16 SS
+//   wgmma.m64n64k16 (Q and K read K-major by descriptor), the online
+//   softmax on the fp32 accumulator fragments, p rounded into wgmma's
+//   register A and O += P V as 4 RS wgmma.m64n256k16 with V read as an
+//   MN-major B (no transposed copy).  Each K / V tile is read once per
+//   warpgroup from shared memory (mma.sync read it once per warp).  The
+//   warpgroup that leaves a ring slot last refills it; there is no
+//   producer warp, which would cap the consumers' registers (see Config).
+//   A missing cuTensorMapEncodeTiled or a refused tensor map returns an
+//   error code that the wrapper raises on.
+//
+// * "general", bf16 / fp16 at other head dims (C = 512 at nf = 128, C <
+//   256): flash_attn_kernel_tc (mudiff_flash_attn), FlashAttention-2 on
+//   the tensor cores.  A block owns BQ = 64 queries of one batch row, four row groups
 //   of 16; each warp owns the 16 query rows of its group.  Q stays in
 //   shared memory (its fragments are reloaded by ldmatrix, as registers
 //   hold the output); K and V tiles of BK = 64 keys come in by cp.async
@@ -45,18 +68,22 @@
 //   zeros; query rows past L load as zeros and are not stored; columns
 //   past C load as zeros.
 //
-// * fp32: flash_attn_kernel_fma, on the CUDA cores in fp32 FMA (TF32
-//   would miss the fp32 tolerance).  One block of 256 threads owns BQ
-//   queries; per key tile of 64 it computes a patch of scores per thread,
-//   reduces the row statistics with shuffles, stages p in shared memory
-//   and accumulates p.v in a register patch per thread.
+// * "fma", fp32: flash_attn_kernel_fma (mudiff_flash_attn), on the CUDA
+//   cores in fp32 FMA (TF32 would miss the fp32 tolerance).  One block of
+//   256 threads owns BQ queries; per key tile of 64 it computes a patch of
+//   scores per thread, reduces the row statistics with shuffles, stages p
+//   in shared memory and accumulates p.v in a register patch per thread.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_wgmma.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -271,10 +298,14 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out, f
   constexpr int BQ = Tile<CMAX>::BQ;
   constexpr size_t smem = smem_floats<CMAX>() * sizeof(float);
   static_assert(smem <= 232448, "tile exceeds the 227 KB a block may use");
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel_fma<CMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  static bool configured = false;  // once per instance
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel_fma<CMAX>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
   const dim3 grid((L + BQ - 1) / BQ, batch);
   flash_attn_kernel_fma<CMAX><<<grid, THREADS, smem, stream>>>(q, k, v, out, m, l, L, C, scale);
   return cudaGetLastError();
@@ -538,10 +569,14 @@ template <typename T, int CMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* m, float* l,
                    int batch, int L, int C, float scale, cudaStream_t stream) {
   using TL = Tile<CMAX>;
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel_tc<T, CMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(TL::SMEM));
-  if (err != cudaSuccess) return err;
+  static bool configured = false;  // once per instance
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel_tc<T, CMAX>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(TL::SMEM));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
   const dim3 grid((L + BQ - 1) / BQ, batch);
   flash_attn_kernel_tc<T, CMAX><<<grid, TL::THREADS, TL::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -557,6 +592,266 @@ cudaError_t launch_for_c(const void* q, const void* k, const void* v, void* out,
 }
 
 }  // namespace tcattn
+
+// ----------------------------------------- bf16/fp16 wgmma + TMA (Hopper)
+
+namespace wgmma {
+
+using namespace k3w;  // tiles, descriptors, the m64n64 / m64n256 products
+using tc::mbar_expect_tx;
+using tc::mbar_init;
+
+constexpr int QUERY_ROWS = 64;            // queries a consumer warpgroup owns: one m64
+constexpr int KEY_ROWS = 64;              // keys a K / V tile: the scores' n64, P V's k
+constexpr int STAGES_NARROW = 2;          // K / V tiles in the ring, 64-query blocks: one key tile
+constexpr int STAGES_WIDE = 4;            // the same, 128-query blocks: two key tiles
+constexpr int BLOCKS_NARROW = 2;          // blocks an SM, 64-query blocks
+constexpr int SMEM_LIMIT = 232448;        // dynamic shared memory a block may use
+
+// NWG consumer warpgroups (64 queries each) and no producer: the
+// warpgroup that leaves a ring slot last refills it (its thread 0 counts
+// the warpgroups out of the slot and issues the TMA loads).  Registers: an
+// SM's four schedulers each hold a quarter of the register file and a
+// block's warps are dealt to them in turn, so a producer warp beside two
+// consumer warpgroups (9 warps, three on one scheduler) would cap every
+// thread at 168 registers, and setmaxnreg does not raise what ptxas
+// compiles the consumers for (it serializes their wgmma instead).  With
+// warpgroups only, each scheduler holds at most two warps of a block (or
+// of the two 64-query blocks an SM) and a consumer keeps up to 255
+// registers for its 128 fp32 O accumulators, 32 scores and 16 P registers.
+template <int NWG>
+struct Config {
+  static constexpr int THREADS = NWG * WG_THREADS;
+  static constexpr int BQ = NWG * QUERY_ROWS;
+  static constexpr int STAGES = NWG == 1 ? STAGES_NARROW : STAGES_WIDE;
+  static constexpr int BLOCKS = NWG == 1 ? BLOCKS_NARROW : 1;
+  // alignment slack, NWG Q tiles, the ring, the barriers, the slot counts
+  static constexpr int SMEM = 1024 + (NWG + STAGES) * TILE_BYTES + (STAGES + 1) * 8 + STAGES * 4;
+  static_assert(NWG == 1 || NWG == 2, "64 or 128 queries a block");
+  static_assert(SMEM <= SMEM_LIMIT && BLOCKS * (SMEM + 1024) <= 233472,
+                "the planned blocks share an SM's 228 KB");
+  static_assert(STAGES % 2 == 0, "K and V of a key tile alternate in the ring");
+};
+static_assert(QUERY_ROWS == TILE_ROWS && KEY_ROWS == TILE_ROWS, "m64 tiles");
+
+struct Params {
+  void* out;               // (B, L, C)
+  float* m_out;            // (B, L) or null
+  float* l_out;            // (B, L) or null
+  int L;
+  float scale;
+};
+
+// One block: queries q0 .. q0 + 64 NWG of batch row b, one consumer
+// warpgroup a 64 of them.  Per key tile a warpgroup computes S = Q K^T (16
+// SS m64n64k16), the online softmax on the accumulator, rounds p into
+// register A and adds O += P V (4 RS m64n256k16, V MN-major).  The ring
+// holds K and V of the key tiles in turn (item n = 2 tile + (V ? 1 : 0) in
+// slot n % STAGES); a slot's full barrier counts its TMA bytes.  A
+// consumer's arithmetic does not depend on NWG, so 64- and 128-query
+// blocks give the same bits.
+template <typename T, int NWG>
+__global__ void __launch_bounds__(Config<NWG>::THREADS, Config<NWG>::BLOCKS)
+flash_attn_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, const Params p) {
+  using CF = Config<NWG>;
+  constexpr int STAGES = CF::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;                       // NWG Q tiles
+  unsigned char* ring = qs + NWG * TILE_BYTES;    // STAGES K / V tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * TILE_BYTES);
+  uint64_t* q_full = full + STAGES;
+  unsigned* left = reinterpret_cast<unsigned*>(q_full + 1);  // warpgroups out of each slot
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * CF::BQ;
+  const int items = 2 * ((p.L + KEY_ROWS - 1) / KEY_ROWS);
+  const int wg = threadIdx.x / WG_THREADS;
+  const int t = threadIdx.x % WG_THREADS;
+  const int lane = t & 31;
+
+  // item n (K or V of key tile n / 2) into slot n % STAGES
+  auto load = [&](int n) {
+    const int s = n % STAGES;
+    mbar_expect_tx(&full[s], TILE_BYTES);
+    for (int a = 0; a < ATOMS; ++a)
+      tc::tma_load_3d(ring + s * TILE_BYTES + a * ATOM_BYTES, (n & 1) ? &vmap : &kmap,
+                      &full[s], a * ATOM_C, (n >> 1) * KEY_ROWS, b);
+  };
+  // this warpgroup is done with item n: the last one out refills its slot
+  auto leave = [&](int n) {
+    tc::named_sync(1 + wg, WG_THREADS);  // every warp of it has waited for its products
+    if (t == 0 && n + STAGES < items) {
+      __threadfence_block();
+      if (atomicAdd(&left[n % STAGES], 1u) % NWG == NWG - 1) load(n + STAGES);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      left[s] = 0;
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, NWG * TILE_BYTES);
+    for (int g = 0; g < NWG; ++g)
+      for (int a = 0; a < ATOMS; ++a)
+        tc::tma_load_3d(qs + g * TILE_BYTES + a * ATOM_BYTES, &qmap, q_full, a * ATOM_C,
+                        q0 + g * QUERY_ROWS, b);
+    for (int n = 0; n < STAGES && n < items; ++n) load(n);
+  }
+
+  const uint32_t q_tile = tc::smem_u32(qs + wg * TILE_BYTES);
+  const uint32_t ring0 = tc::smem_u32(ring);
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  // this thread's rows: acc_row(t, x) for h = 0 (x & 2 == 0) and h = 1
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // partial: this thread's columns
+  uint32_t a[4][4];
+
+  wait_phase(q_full, 0);
+  for (int n = 0; n < items; n += 2) {
+    const int k0 = (n >> 1) * KEY_ROWS;
+    // S = Q K^T over all 256 channels
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wait_phase(&full[n % STAGES], (n / STAGES) & 1);
+    const uint32_t k_tile = ring0 + (n % STAGES) * TILE_BYTES;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HEAD_DIM / 16; ++kk)
+      mma_ss<T>(sc, kmajor_desc(q_tile, kk), kmajor_desc(k_tile, kk), kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tc::fence_reg(sc[i]);
+    leave(n);
+
+    // online softmax of this thread's two rows, as the general path's
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int key = k0 + acc_col(t, x);
+      const float val = key < p.L ? sc[x] * p.scale : -INFINITY;
+      sc[x] = val;
+      mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], val);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    // key k0 + 0 is valid, so the first tile gives every row a finite max,
+    // and alpha = exp(-inf) = 0 there
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      alpha[h] = expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+      l_run[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const float pv = expf(sc[x] - m_run[(x >> 1) & 1]);
+      l_run[(x >> 1) & 1] += pv;
+      sc[x] = pv;
+    }
+#pragma unroll
+    for (int x = 0; x < 128; ++x) o[x] *= alpha[(x >> 1) & 1];
+    to_a<T>(a, sc);
+
+    // O += P V over the tile's 64 keys, p rounded to T
+    wait_phase(&full[(n + 1) % STAGES], ((n + 1) / STAGES) & 1);
+    const uint32_t v_tile = ring0 + ((n + 1) % STAGES) * TILE_BYTES;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) tc::fence_reg(o[i]);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KEY_ROWS / 16; ++kk) mma_rs<T>(o, a[kk], mn_desc(v_tile, kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) tc::fence_reg(o[i]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tc::fence_reg(a[kk][i]);
+    leave(n + 1);
+  }
+
+  // row sums across the quad; one division, one rounding
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+  }
+  const size_t base = (size_t)b * p.L;
+  T* out = static_cast<T*>(p.out);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wg * QUERY_ROWS + acc_row(t, 2 * h);
+    if (row >= p.L) continue;
+    if (p.m_out != nullptr && (lane & 3) == 0) {
+      p.m_out[base + row] = m_run[h];
+      p.l_out[base + row] = l_run[h];
+    }
+    const float inv = 1.f / l_run[h];
+    T* orow = out + (base + row) * HEAD_DIM;
+#pragma unroll
+    for (int j = 0; j < HEAD_DIM / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + acc_col(t, 4 * j)) =
+          tc::pack2<T>(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+  }
+}
+
+template <typename T, int NWG>
+cudaError_t launch_wgmma(const CUtensorMap& qmap, const CUtensorMap& kmap,
+                         const CUtensorMap& vmap, const Params& p, int batch,
+                         cudaStream_t stream) {
+  using CF = Config<NWG>;
+  auto kernel = flash_attn_kernel_wgmma<T, NWG>;
+  static bool configured = false;  // once per instance
+  if (!configured) {
+    const cudaError_t err = configure(kernel, CF::SMEM);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((p.L + CF::BQ - 1) / CF::BQ, batch);
+  kernel<<<grid, CF::THREADS, CF::SMEM, stream>>>(qmap, kmap, vmap, p);
+  return cudaGetLastError();
+}
+
+// block_q 128 (two consumer warpgroups sharing each K / V tile) where the
+// grid still gives each SM a block, else 64 (twice the blocks, two an
+// SM); 64 or 128 when the caller names it.
+template <typename T>
+int attn(const void* q, const void* k, const void* v, void* out, float* m, float* l, int batch,
+         int L, float scale, int block_q, cudaStream_t stream) {
+  const bool half = std::is_same<T, __half>::value;
+  CUtensorMap qmap, kmap, vmap;
+  int rc = encode_rows(&qmap, q, half, batch, L, HEAD_DIM);
+  if (rc == 0) rc = encode_rows(&kmap, k, half, batch, L, HEAD_DIM);
+  if (rc == 0) rc = encode_rows(&vmap, v, half, batch, L, HEAD_DIM);
+  if (rc != 0) return rc;
+  if (block_q == 0)
+    block_q = (long long)batch * ((L + 127) / 128) >= tc::sm_count() ? 128 : 64;
+  const Params p{out, m, l, L, scale};
+  if (block_q == 128)
+    return static_cast<int>(launch_wgmma<T, 2>(qmap, kmap, vmap, p, batch, stream));
+  return static_cast<int>(launch_wgmma<T, 1>(qmap, kmap, vmap, p, batch, stream));
+}
+
+}  // namespace wgmma
 
 }  // namespace
 
@@ -580,6 +875,30 @@ extern "C" int mudiff_flash_attn(const void* q, const void* k, const void* v, vo
     case 2:
       return static_cast<int>(
           tcattn::launch_for_c<__half>(q, k, v, out, m, l, batch, L, C, scale, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The wgmma path of q, k, v, out (B, L, 256) of dtype (1 bfloat16, 2
+// float16), contiguous, 16-byte aligned; m and l as mudiff_flash_attn's.
+// block_q: 0 (by the grid: 128 queries a block where that still gives each
+// SM a block, else 64), 64 or 128; the bits do not depend on it.
+// Launches on `stream`; returns 0, a cudaError_t, 10000 (no
+// cuTensorMapEncodeTiled in the driver) or 20000 + CUresult (a tensor map
+// refused).
+extern "C" int mudiff_flash_attn_wgmma(const void* q, const void* k, const void* v, void* out,
+                                       float* m, float* l, int batch, int L, int C, float scale,
+                                       int dtype, int block_q, void* stream) {
+  if (batch <= 0 || batch > 65535 || L <= 0 || C != k3w::HEAD_DIM ||
+      (m == nullptr) != (l == nullptr) || (block_q != 0 && block_q != 64 && block_q != 128) ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1:
+      return wgmma::attn<__nv_bfloat16>(q, k, v, out, m, l, batch, L, scale, block_q, s);
+    case 2: return wgmma::attn<__half>(q, k, v, out, m, l, batch, L, scale, block_q, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

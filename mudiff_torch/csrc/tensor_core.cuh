@@ -4,7 +4,8 @@
 // for halos and tails), row tiles of an (L, C) matrix by cp.async, named
 // barriers, ldmatrix fragment loads and the m16n8k16 warp-level matrix
 // product with fp32 accumulation; for the Hopper kernels mbarriers, TMA
-// tile loads, wgmma's fences and cuTensorMapEncodeTiled.
+// tile loads, wgmma's fences, named-barrier handovers and
+// cuTensorMapEncodeTiled.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = threadIdx.x % 32,
 // r = lane / 4, c = (lane % 4) * 2):
@@ -162,7 +163,7 @@ template <> __device__ __forceinline__ __half from_float<__half>(float v) {
 
 
 // ------------------------------------------- Hopper: mbarriers, TMA, wgmma
-// (K1's wgmma path, K4's fused path)
+// (K1's wgmma path, K4's fused path, K3's wgmma paths)
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
@@ -207,6 +208,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -228,9 +238,20 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Keep an accumulator in place across the asynchronous product (no code).
+// Keep an accumulator in place across the asynchronous product (no code);
+// on a register A operand, keep it live until the product is waited for.
 __device__ __forceinline__ void fence_reg(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// Named barrier `id` (1..15) of `threads` threads: sync waits for all of
+// them, arrive signals without waiting (a producer's half of a handover).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // cuTensorMapEncodeTiled from the driver, fetched through the runtime so
 // that the library links against nothing but cudart.
@@ -255,6 +276,19 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(ptr);
   }
   return fn;
+}
+
+// The current device's SMs, read once (0 if the query fails): the TMA
+// kernels size their tiles so that the grid gives each SM a block.
+inline int sm_count() {
+  static int count = -1;
+  if (count < 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 0;
+  }
+  return count;
 }
 
 // Error codes of the TMA kernels' entry points beyond cudaError_t's: the

@@ -27,7 +27,11 @@ is.
 
 Every wrapper dispatches by device (``ops/_dispatch.py``): CPU tensors
 run the plain version, CUDA tensors launch the kernel or raise.
-``<wrapper>.launches`` counts kernel launches and nothing else.
+``<wrapper>.launches`` counts kernel launches and nothing else, and
+``<wrapper>.path_launches`` the same launches by the kernel that took them
+(``k3_path``, the same rule for the forward and both backward kernels):
+``"wgmma"`` (bf16 / fp16 at C = 256 on Hopper's wgmma and TMA),
+``"general"`` (bf16 / fp16 on ``mma.sync``) or ``"fma"`` (fp32).
 """
 
 from __future__ import annotations
@@ -48,6 +52,26 @@ from mudiff_torch.ops._dispatch import (
 )
 
 MAX_HEAD_DIM = 512
+# The one head dim of the wgmma kernels: the recipe's (nf = 64).  C = 512
+# (nf = 128) would need a 64 x 512 fp32 accumulator a warpgroup; smaller
+# head dims would leave most of a 64-channel TMA box empty.
+WGMMA_HEAD_DIM = 256
+
+
+def k3_path_for(c: int, dtype: torch.dtype) -> str:
+    """``k3_path`` from the head dim and dtype alone."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if c == WGMMA_HEAD_DIM else "general"
+
+
+def k3_path(q: torch.Tensor) -> str:
+    """Which of K3's kernels takes a call on (B, L, C) tensors like ``q``,
+    forward and backward alike: ``"fma"`` for float32; for bf16 / fp16
+    ``"wgmma"`` at C = 256, else ``"general"``.  Decided before any launch,
+    from the shape and dtype alone, on any device (the wrappers take only
+    contiguous 16-byte aligned tensors, which the tensor maps need)."""
+    return k3_path_for(q.shape[-1], q.dtype)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -101,17 +125,43 @@ def _bwd_plain(q, k, v, do, stats, di, scale, want=("dq", "dk", "dv")):
 
 
 _FNS = {}
+# {kernel: {path: (library, entry point, pointer arguments)}}; the wgmma
+# forward takes one int more (block_q) before the stream
+_ENTRIES = {
+    "flash_attn": {"general": ("flash_attn", "mudiff_flash_attn", 6),
+                   "wgmma": ("flash_attn", "mudiff_flash_attn_wgmma", 6)},
+    "flash_attn_bwd_dkv": {"general": ("flash_attn_bwd", "mudiff_flash_attn_bwd_dkv", 9),
+                           "wgmma": ("flash_attn_bwd", "mudiff_flash_attn_bwd_dkv_wgmma", 9)},
+    "flash_attn_bwd_dq": {"general": ("flash_attn_bwd", "mudiff_flash_attn_bwd_dq", 8),
+                          "wgmma": ("flash_attn_bwd", "mudiff_flash_attn_bwd_dq_wgmma", 8)},
+}
 
 
-def _kernel_fn(lib: str, name: str, n_ptr: int):
+def _kernel_fn(kernel: str, path: str):
+    """The entry point of ``kernel``'s ``path`` (``"fma"`` shares the
+    general entry point, which picks by dtype)."""
+    lib, name, n_ptr = _ENTRIES[kernel]["wgmma" if path == "wgmma" else "general"]
     fn = _FNS.get(name)
     if fn is None:
         fn = getattr(_build.load(lib), name)
+        extra = [ctypes.c_int] if name == "mudiff_flash_attn_wgmma" else []
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int] + extra + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
+
+
+def _check_path(name: str, path: str, dtype: torch.dtype) -> None:
+    """A named path must exist for the dtype: "fma" for float32 only, the
+    tensor-core ones for bf16 / fp16 only."""
+    if path not in ("wgmma", "general", "fma") or (path == "fma") != (dtype == torch.float32):
+        raise ValueError(f"{name}: no {path} kernel for {dtype}")
+
+
+def _launched(wrapper, path: str) -> None:
+    wrapper.launches += 1
+    wrapper.path_launches[path] += 1
 
 
 def _check(*tensors: torch.Tensor) -> None:
@@ -147,21 +197,38 @@ def _forward(q, k, v, scale, with_stats):
     if not use_kernel("flash_attn", (*q.shape, q.dtype), q, k, v):
         out = flash_attn_plain(q, k, v, scale)
         return out, (row_stats_plain(q, k, scale) if with_stats else None)
+    return _launch_forward(q, k, v, scale, with_stats, k3_path(q))
+
+
+def _launch_forward(q, k, v, scale, with_stats, path, block_q=0):
+    """Launch K3's ``path`` on CUDA tensors; ``block_q`` (wgmma only): 0
+    lets the kernel pick 64 or 128 queries a block by the grid."""
     _check(q, k, v)
     b, length, c = q.shape
     out = torch.empty_like(q)
     stats = (torch.empty((2, b, length), dtype=torch.float32, device=q.device)
              if with_stats else None)
-    rc = _kernel_fn("flash_attn", "mudiff_flash_attn", 6)(
+    extra = (int(block_q),) if path == "wgmma" else ()
+    rc = _kernel_fn("flash_attn", path)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         stats[0].data_ptr() if with_stats else None,
         stats[1].data_ptr() if with_stats else None,
-        b, length, c, float(scale), DTYPE_CODES[q.dtype],
+        b, length, c, float(scale), DTYPE_CODES[q.dtype], *extra,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check_cuda_result("flash_attn", rc)
-    flash_attn.launches += 1
+    check_cuda_result(f"flash_attn ({path})", rc)
+    _launched(flash_attn, path)
     return out, stats
+
+
+def flash_attn_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                    path: str, block_q: int = 0) -> torch.Tensor:
+    """K3's forward through the named kernel on CUDA tensors, whatever
+    ``k3_path`` would pick (``chip_smoke.py`` times the mma.sync kernel beside the
+    wgmma one and checks that 64- and 128-query blocks give the same bits);
+    counted like any launch."""
+    _check_path("flash_attn", path, q.dtype)
+    return _launch_forward(q, k, v, scale, False, path, block_q)[0]
 
 
 def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -171,19 +238,33 @@ def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and ``di = attn_di(o, do)``."""
     if not use_kernel("flash_attn_bwd_dkv", (*q.shape, q.dtype), q, k, v, do, stats, di):
         return _bwd_plain(q, k, v, do, stats, di, scale, want=("dk", "dv"))
+    return _launch_bwd("flash_attn_bwd_dkv", q, k, v, do, stats, di, scale, k3_path(q))
+
+
+def flash_attn_bwd_path(name: str, q, k, v, do, stats, di, scale: float, path: str):
+    """K3's backward kernel ``name`` (``"flash_attn_bwd_dkv"`` or
+    ``"flash_attn_bwd_dq"``) through the named path on CUDA tensors,
+    whatever ``k3_path`` would pick (``chip_smoke.py`` times the mma.sync kernels
+    beside the wgmma ones); counted like any launch."""
+    _check_path(name, path, q.dtype)
+    return _launch_bwd(name, q, k, v, do, stats, di, scale, path)
+
+
+def _launch_bwd(name, q, k, v, do, stats, di, scale, path):
     _check(q, k, v, do)
     _check_stats(q, stats, di)
     b, length, c = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _kernel_fn("flash_attn_bwd", "mudiff_flash_attn_bwd_dkv", 9)(
+    dkv = name == "flash_attn_bwd_dkv"
+    outs = (torch.empty_like(k), torch.empty_like(v)) if dkv else (torch.empty_like(q),)
+    rc = _kernel_fn(name, path)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats[1].data_ptr(), di.data_ptr(), *(t.data_ptr() for t in outs),
         b, length, c, float(scale), DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check_cuda_result("flash_attn_bwd_dkv", rc)
-    flash_attn_bwd_dkv.launches += 1
-    return dk, dv
+    check_cuda_result(f"{name} ({path})", rc)
+    _launched(flash_attn_bwd_dkv if dkv else flash_attn_bwd_dq, path)
+    return outs if dkv else outs[0]
 
 
 def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -193,19 +274,7 @@ def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``di = attn_di(o, do)``."""
     if not use_kernel("flash_attn_bwd_dq", (*q.shape, q.dtype), q, k, v, do, stats, di):
         return _bwd_plain(q, k, v, do, stats, di, scale, want=("dq",))[0]
-    _check(q, k, v, do)
-    _check_stats(q, stats, di)
-    b, length, c = q.shape
-    dq = torch.empty_like(q)
-    rc = _kernel_fn("flash_attn_bwd", "mudiff_flash_attn_bwd_dq", 8)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), di.data_ptr(), dq.data_ptr(),
-        b, length, c, float(scale), DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check_cuda_result("flash_attn_bwd_dq", rc)
-    flash_attn_bwd_dq.launches += 1
-    return dq
+    return _launch_bwd("flash_attn_bwd_dq", q, k, v, do, stats, di, scale, k3_path(q))
 
 
 class _FlashAttn(torch.autograd.Function):
@@ -243,3 +312,6 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attn.launches = 0
 flash_attn_bwd_dkv.launches = 0
 flash_attn_bwd_dq.launches = 0
+# the launches of each path (k3_path): the recipe's C = 256 takes "wgmma"
+for _wrapper in (flash_attn, flash_attn_bwd_dkv, flash_attn_bwd_dq):
+    _wrapper.path_launches = {"wgmma": 0, "general": 0, "fma": 0}
