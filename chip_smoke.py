@@ -155,7 +155,16 @@ ends the run with a non-zero exit code:
    script's ``--torchrun-train`` mode calls the CLI's ``main``), which
    must join a one-rank NCCL mesh; its ``content.pt`` restored and held
    against the file tensor for tensor; ``--resume`` without torchrun for
-   a second epoch, counted; the median iteration beside 7's.
+   a second epoch, counted; the median iteration beside 7's; (c) the
+   test CLI the same way (``--torchrun-test``: its ``main`` under
+   torchrun, under ``fixed_cudnn``) on 7's split and checkpoint at its
+   recipe, batch 4, flash attention, once in its default W8A8 mode
+   (dynamic scales) and once ``--bf16``: the mesh it joined (NCCL, world
+   size 1, dp 1), every kernel's launches against the structure (K1,
+   K2a, K2b, K3 forward, and K4 in the W8A8 leg), K1, K3 and K4 by
+   path, and its predictions and PNG codes bit for bit against
+   ``sample_and_test`` in this process at the same seed, also under
+   ``fixed_cudnn``; each leg's wall and sample seconds beside 7's.
 14. (run after 13, in its work directory) the model branches off the
    recipe at ``brats_recipe(num_channels_dae=64, image_size=256)``'s
    width, seeded non-trivial weights: B1 (one-AdaGN resblocks, the
@@ -2300,7 +2309,7 @@ def loop_phase(cfg, card, work: str) -> dict:
     }
     print(_json.dumps(result), flush=True)
     totals = combine([(1, c) for c in counts.values()])
-    return {"launches": totals, "log": log, **result}
+    return {"launches": totals, "log": log, "exp_dir": exp, **result}
 
 
 def write_run_yaml(work: str, npy: str) -> str:
@@ -2738,6 +2747,174 @@ def mesh_cli_check(cfg, card, work: str, loop: dict) -> dict:
     return result
 
 
+def torchrun_test(out_path: str, argv) -> int:
+    """The process ``mesh_test_check`` launches with torchrun: the test
+    CLI's ``main`` (what ``-m mudiff_torch.cli.test`` runs) under the
+    smoke's TF32 settings and ``fixed_cudnn``, with the launch counts
+    zeroed before and read after (K1 and K3 by path checked here), the
+    mesh it joined and its wall seconds into ``out_path``, and what
+    ``sample_and_test`` returned (the predictions and the codes written)
+    into ``out_path``.npz.  ``--after FILE`` first in ``argv``: with the
+    card initialised, wait until FILE exists (the leg before is done)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mudiff_torch import ops
+    from mudiff_torch.cli import test as test_cli
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if argv[:1] == ["--after"]:
+        after, argv = argv[1], argv[2:]
+        torch.cuda.init()
+        deadline = time.monotonic() + MESH_CLI_TIMEOUT
+        while not os.path.exists(after):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{after} was not written")
+            time.sleep(0.05)
+    joined, sampled = {}, {}
+    init_mesh, sample_and_test = test_cli.init_mesh, test_cli.sample_and_test
+
+    def recording_init_mesh(*a, **k):
+        mesh = init_mesh(*a, **k)
+        joined.update(backend=dist.get_backend(), rank=mesh.rank, world=mesh.world,
+                      dp=mesh.dp, fsdp=mesh.fsdp, device=str(mesh.device))
+        return mesh
+
+    def recording_sample_and_test(*a, **k):
+        sampled.update(sample_and_test(*a, **k))
+        return sampled
+
+    test_cli.init_mesh = recording_init_mesh
+    test_cli.sample_and_test = recording_sample_and_test
+    log = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with ops.record_calls(log), fixed_cudnn():
+        t = time.perf_counter()
+        res = test_cli.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+    report = {"launches": ops.launch_counts(),
+              "k1_path_launches": k1_path_check("torchrun test", log),
+              "k3_path_launches": k3_path_check("torchrun test", log),
+              "k4_path_launches": dict(ops.int8_conv3x3.path_launches), "mesh": joined,
+              "torchrun_env": {k: os.environ.get(k) for k in
+                               ("RANK", "LOCAL_RANK", "WORLD_SIZE")},
+              "main_s": main_s, "seconds": res["seconds"], "n_slices": res["n_slices"],
+              "batch_size": sampled["batch_size"],
+              "metrics": {k: res[k] for k in ("psnr", "ssim", "mae")}}
+    np.savez(out_path + ".npz", **{k: sampled[k] for k in ("pred", "pred_u8", "gt_u8")})
+    with open(out_path + ".part", "w") as f:
+        json.dump(report, f)
+    os.replace(out_path + ".part", out_path)  # the next leg waits for this name
+    return 0
+
+
+def mesh_test_check(cfg, card, work: str, loop: dict) -> dict:
+    """Phase 13 (c): ``torchrun --standalone --nproc_per_node=1`` of the
+    test CLI on phase 7's split and checkpoint (``work``), in its default
+    W8A8 mode and with ``--bf16``, counted in the launched processes
+    (``torchrun_test``), and held bit for bit against ``sample_and_test``
+    in this process at the same seed, all under ``fixed_cudnn``.  Both
+    processes start at once and the second samples after the first has
+    written its report, so the start-ups overlap and the samplings do
+    not; this process samples while they start."""
+    import numpy as np
+    import torch
+
+    from mudiff_torch.cli.args import parse_config
+    from mudiff_torch.infer import sample_and_test
+
+    struct = loop_structure(cfg)
+    exp = loop["exp_dir"]
+    targv = recipe_argv(cfg) + ["--input_path", os.path.join(work, "npy"), "--ckpt_dir", exp,
+                                "--attn", "flash", "--test_batch_size", str(LOOP_TEST_BATCH)]
+    legs = (("int8", [], struct["sample_int8"]), ("bf16", ["--bf16"], struct["sample"]))
+    reports = {tag: os.path.join(work, f"torchrun_test_{tag}.json") for tag, _, _ in legs}
+    procs, after = {}, []
+    t0 = time.perf_counter()
+    try:
+        for tag, extra, _ in legs:
+            with open(reports[tag] + ".log", "w") as log:
+                procs[tag] = subprocess.Popen(
+                    [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node=1", os.path.abspath(__file__), "--torchrun-test",
+                     reports[tag], *after, *targv, *extra],
+                    stdout=log, stderr=subprocess.STDOUT,
+                    cwd=os.path.dirname(os.path.abspath(__file__)))
+            after = ["--after", reports[tag]]
+        refs, in_process_s = {}, {}
+        for tag, extra, _ in legs:
+            tcfg, a = parse_config(targv + extra, mode="test")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with fixed_cudnn():
+                refs[tag] = sample_and_test(
+                    tcfg, ckpt_dir=exp, batch_size=LOOP_TEST_BATCH, seed=tcfg.seed,
+                    output_dir=os.path.join(work, f"in_process_test_{tag}"), device=DEVICE,
+                    attn=a.attn)
+            torch.cuda.synchronize()
+            in_process_s[tag] = time.perf_counter() - t
+        ended = {}
+        for tag, proc in procs.items():
+            rc = proc.wait(timeout=max(1.0, MESH_CLI_TIMEOUT - (time.perf_counter() - t0)))
+            ended[tag] = time.perf_counter() - t0
+            if rc:
+                with open(reports[tag] + ".log") as f:
+                    raise AssertionError(f"torchrun test {tag} exited {rc}:\n"
+                                         f"{f.read()[-6000:]}")
+    finally:  # torchrun passes a SIGTERM on to its worker
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    phase_s = time.perf_counter() - t0
+    n_batches = math.ceil(10 / LOOP_TEST_BATCH)
+    on_card = DEVICE == "cuda"
+    out = {}
+    for tag, _, per in legs:
+        with open(reports[tag]) as f:
+            got = json.load(f)
+        if got["mesh"] != {"backend": "nccl" if on_card else "gloo", "rank": 0, "world": 1,
+                           "dp": 1, "fsdp": 1, "device": "cuda:0" if on_card else "cpu"}:
+            raise AssertionError(f"torchrun test {tag} joined {got['mesh']}")
+        want = combine([(n_batches, per)])
+        need = ["conv3x3", "fir_down2", "fir_up2", "flash_attn"] + (
+            ["int8_conv3x3"] if tag == "int8" else [])
+        if got["launches"] != want or not all(got["launches"][k] > 0 for k in need):
+            raise AssertionError(f"torchrun test {tag} launches {got['launches']} != "
+                                 f"structure's {want}")
+        if got["k4_path_launches"] != {"wgmma": want["int8_conv3x3"], "general": 0}:
+            raise AssertionError(f"torchrun test {tag}: K4 by path {got['k4_path_launches']}")
+        if got["batch_size"] != LOOP_TEST_BATCH or got["n_slices"] != 10:
+            raise AssertionError(f"torchrun test {tag}: batch {got['batch_size']}, "
+                                 f"{got['n_slices']} slices")
+        with np.load(reports[tag] + ".npz") as arrays:
+            for k in ("pred", "pred_u8", "gt_u8"):
+                if not np.array_equal(arrays[k], refs[tag][k]):
+                    diff = np.abs(arrays[k].astype(np.float64) - refs[tag][k]).max()
+                    raise AssertionError(f"torchrun test {tag}: {k} differs from the "
+                                         f"in-process sample_and_test by {diff}")
+        out[tag] = {"ended_s": ended[tag], "main_s": got["main_s"], "seconds": got["seconds"],
+                    "phase7_sample_s": loop["slice_test"][tag]["seconds"]["sample_s"],
+                    "in_process_s": in_process_s[tag], "launches": got["launches"],
+                    "k1_path_launches": got["k1_path_launches"],
+                    "k3_path_launches": got["k3_path_launches"],
+                    "k4_path_launches": got["k4_path_launches"], "metrics": got["metrics"],
+                    "bits_equal_in_process": True}
+    result = {"card": card, "phase": "torchrun test CLI (NCCL, world size 1) vs in-process",
+              "nf": cfg.num_channels_dae, "batch": LOOP_TEST_BATCH, "mesh": got["mesh"],
+              "torchrun_env": got["torchrun_env"], "phase_s": phase_s, "legs": out}
+    print(json.dumps(result), flush=True)
+    return result
+
+
 def mesh_traffic(cfg) -> dict:
     """Bytes each rank sends in one D (R1) + G iteration on each mesh of
     MESH_SHAPES, worked out from the parameters (fp32) and ``param_spec``
@@ -2788,6 +2965,7 @@ def distributed_phase(cfg, card, work: str, loop: dict) -> dict:
     t = time.perf_counter()
     step = mesh_step_check(card)
     cli = mesh_cli_check(cfg, card, work, loop)
+    test = mesh_test_check(cfg, card, work, loop)
     doc, exp = load_experiment(RUN_YAML, RUN_EXPERIMENT)
     run_cfg = _config_from_yaml(exp["train_args"], doc["data_path"], doc["output_root"],
                                 RUN_EXPERIMENT, exp["target"])
@@ -2795,7 +2973,7 @@ def distributed_phase(cfg, card, work: str, loop: dict) -> dict:
     seconds = time.perf_counter() - t
     print(json.dumps({"card": card, "phase": "distributed", "seconds": seconds,
                       "collective_bytes_worked_out": traffic}), flush=True)
-    return {"step": step, "cli": cli, "seconds": seconds, "traffic": traffic}
+    return {"step": step, "cli": cli, "test": test, "seconds": seconds, "traffic": traffic}
 
 
 def remat_table(cfg, card, log) -> dict:
@@ -3594,8 +3772,10 @@ def profile_call(fn) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv[:1] == ["--torchrun-train"]:  # phase 13's process under torchrun
+    if argv[:1] == ["--torchrun-train"]:  # phase 13's processes under torchrun
         return torchrun_train(argv[1], argv[2:])
+    if argv[:1] == ["--torchrun-test"]:
+        return torchrun_test(argv[1], argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write per-shape rows and the nvcc log here")
     args = parser.parse_args(argv)

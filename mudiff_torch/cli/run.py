@@ -20,9 +20,13 @@ process.  ``--attn`` is the attention lowering (else ``einsum`` for
 training and ``bf16`` for the test), in place of ``MUDIFF_ATTN``.
 
 Under torchrun every process joins the mesh of the experiment's
-``train_args`` ``dp`` x ``fsdp`` (``parallel.init_mesh``) and trains on
-it; the lead rank alone writes ``session_metadata.json`` and runs the
-test.
+``train_args`` ``dp`` x ``fsdp`` (``parallel.init_mesh``; with
+``--test-only`` the mesh of all ranks on the data axis) and trains on
+it.  The test then runs on every rank over the same process group, all
+ranks on the data axis (``parallel.data_mesh``), each sampling its rows
+of every batch, after a barrier that waits for the lead's checkpoints;
+the lead rank alone writes ``session_metadata.json``, the PNGs and
+``test_metrics.json``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from mudiff_torch.config import _config_from_yaml, load_experiment
-from mudiff_torch.parallel import init_mesh
+from mudiff_torch.parallel import data_mesh, init_mesh
 
 
 def _session_metadata(device: torch.device) -> Dict[str, Any]:
@@ -68,10 +72,10 @@ def run_experiment(cfg_path: str, exp_name: str, train_only: bool = False,
                    attn: Optional[str] = None) -> Dict[str, Any]:
     """Train and / or test one experiment of the YAML at ``cfg_path`` on
     ``device`` (default the card; under torchrun each rank's, on the
-    mesh of the experiment's ``dp`` / ``fsdp``).  Returns ``exp_dir``, and
-    ``train`` (``train``'s artifacts) and ``test`` (``sample_and_test``'s
-    result with its ``metrics``, on the lead rank) for the phases that
-    ran."""
+    mesh of the experiment's ``dp`` / ``fsdp``, and all ranks on the data
+    axis for the test).  Returns ``exp_dir``, and ``train`` (``train``'s
+    artifacts) and ``test`` (``sample_and_test``'s result with its
+    ``metrics``, on the lead rank) for the phases that ran."""
     from mudiff_torch.sampler import serving_device
 
     device = serving_device(device, "run_experiment")
@@ -81,14 +85,15 @@ def run_experiment(cfg_path: str, exp_name: str, train_only: bool = False,
     target = exp.get("target", "T1CE")
     train_cfg = _config_from_yaml(exp.get("train_args"), data_path, output_root, exp_name,
                                   target)
-    mesh = init_mesh(train_cfg.dp, train_cfg.fsdp, device)
+    mesh = (init_mesh(-1, 1, device) if test_only
+            else init_mesh(train_cfg.dp, train_cfg.fsdp, device))
     device = mesh.device if mesh is not None else device
     lead = mesh is None or mesh.lead
     out_dir = os.path.join(output_root, exp_name, target)
-    os.makedirs(out_dir, exist_ok=True)
     results: Dict[str, Any] = {"exp_dir": out_dir}
     try:
         if lead:
+            os.makedirs(out_dir, exist_ok=True)
             meta = _session_metadata(device)
             meta.update({"experiment": exp_name, "target": target,
                          "config_file": os.path.abspath(cfg_path)})
@@ -99,23 +104,26 @@ def run_experiment(cfg_path: str, exp_name: str, train_only: bool = False,
 
             results["train"] = train(train_cfg, verbose=verbose, device=device,
                                      attn=attn or "einsum", mesh=mesh)
+        if not train_only:
+            from mudiff_torch.infer import sample_and_test
+            from mudiff_torch.metrics import evaluate_pair_dirs
+
+            if mesh is not None:
+                mesh.barrier()  # the lead's checkpoints are on disk
+            test_cfg = _config_from_yaml(exp.get("test_args"), data_path, output_root,
+                                         exp_name, target)
+            out = sample_and_test(test_cfg, ckpt_dir=out_dir, device=device,
+                                  attn=attn or "bf16", mesh=data_mesh(mesh))
+            if lead:
+                metrics = evaluate_pair_dirs(out["pred_dir"], out["gt_dir"])
+                results["test"] = {**out, "metrics": metrics}
+                with open(os.path.join(out_dir, "test_metrics.json"), "w") as f:
+                    json.dump(metrics, f, indent=2)
+                if verbose:
+                    print(json.dumps(metrics, indent=2))
     finally:
         if mesh is not None:
             mesh.close()
-    if not train_only and lead:
-        from mudiff_torch.infer import sample_and_test
-        from mudiff_torch.metrics import evaluate_pair_dirs
-
-        test_cfg = _config_from_yaml(exp.get("test_args"), data_path, output_root,
-                                     exp_name, target)
-        out = sample_and_test(test_cfg, ckpt_dir=out_dir, device=device,
-                              attn=attn or "bf16")
-        metrics = evaluate_pair_dirs(out["pred_dir"], out["gt_dir"])
-        results["test"] = {**out, "metrics": metrics}
-        with open(os.path.join(out_dir, "test_metrics.json"), "w") as f:
-            json.dump(metrics, f, indent=2)
-        if verbose:
-            print(json.dumps(metrics, indent=2))
     return results
 
 

@@ -135,6 +135,23 @@ def sample_from_model(
     return x
 
 
+def sampler_draws(generator: torch.Generator, shape: Sequence[int], nz: int,
+                  num_timesteps: int, rows: slice = slice(None)
+                  ) -> Tuple[torch.Tensor, list]:
+    """``x_init`` and each step's ``(z, posterior noise)`` for a batch of
+    ``shape`` (B, H, W, C), drawn from ``generator`` on its device in the
+    order and shapes that ``Sampler.__call__`` and ``sample_from_model``
+    draw them, so ``sample_from_model(..., x_init, noise=...)`` gives the
+    bits of a call that draws from ``generator`` itself.  ``rows`` of each
+    draw are kept: a rank's rows of the global batch on a mesh."""
+    def normal(*size):
+        return torch.randn(size, generator=generator, device=generator.device,
+                           dtype=torch.float32)[rows]
+
+    x_init = normal(*shape)
+    return x_init, [(normal(shape[0], nz), normal(*shape)) for _ in range(num_timesteps)]
+
+
 def uncer_loss(mean: torch.Tensor, var: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     """Gaussian-NLL-style uncertainty loss, ``mean(0.5 * (exp(-var) *
     (mean - label)^2 + var))`` (defined and never called in the reference,

@@ -6,6 +6,7 @@ from mudiff_torch.parallel.mesh import (
     any_rank,
     average_grads,
     average_scalars,
+    data_mesh,
     gather_rows,
     gather_shards,
     init_mesh,
@@ -16,6 +17,6 @@ from mudiff_torch.parallel.mesh import (
     shard,
 )
 
-__all__ = ["Mesh", "any_rank", "average_grads", "average_scalars", "gather_rows",
-           "gather_shards", "init_mesh", "mesh_shape", "param_spec", "reduce_scatter_grads",
-           "rows_of", "shard"]
+__all__ = ["Mesh", "any_rank", "average_grads", "average_scalars", "data_mesh",
+           "gather_rows", "gather_shards", "init_mesh", "mesh_shape", "param_spec",
+           "reduce_scatter_grads", "rows_of", "shard"]

@@ -152,6 +152,21 @@ def init_mesh(dp: int = -1, fsdp: int = 1, device=None, *, store=None,
     return Mesh(rank, world_size, dp, fsdp, device, data_group, fsdp_group)
 
 
+def data_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh of ``mesh``'s ranks all on the data axis, ``(world, 1)``,
+    over the same process group: what sampling takes (``make_mesh(dp=-1,
+    fsdp=1)`` in the JAX package).  ``mesh`` itself when its fsdp is 1;
+    else every rank must call it, and closing either mesh closes both."""
+    if mesh is None or mesh.fsdp == 1:
+        return mesh
+    backend = dist.get_backend()
+    fsdp_group, _ = dist.new_subgroups_by_enumeration([[r] for r in range(mesh.world)],
+                                                      backend=backend)
+    data_group, _ = dist.new_subgroups_by_enumeration([list(range(mesh.world))],
+                                                      backend=backend)
+    return Mesh(mesh.rank, mesh.world, mesh.world, 1, mesh.device, data_group, fsdp_group)
+
+
 def param_spec(shape: Sequence[int], fsdp: int,
                min_size: int = MIN_SHARD_SIZE) -> Optional[int]:
     """The axis of a tensor that fsdp shards, or None (replicated).

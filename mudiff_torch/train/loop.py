@@ -60,7 +60,7 @@ import torch
 from mudiff_torch.config import MuDiffConfig
 from mudiff_torch.convert import GENERATOR_FILES
 from mudiff_torch.data import BRATS_ORDERS, ISLES_ORDERS, DeviceLoader, SliceDataset
-from mudiff_torch.diffusion.sampling import sample_from_model
+from mudiff_torch.diffusion.sampling import sample_from_model, sampler_draws
 from mudiff_torch.metrics import psnr as psnr_fn
 from mudiff_torch.parallel.mesh import Mesh, any_rank, gather_rows, mesh_shape, rows_of
 from mudiff_torch.sampler import serving_device
@@ -88,16 +88,8 @@ class SeededDraws:
 
     def sample(self, real: torch.Tensor) -> Tuple[torch.Tensor, List]:
         n = real.shape[0] * (self.mesh.dp if self.mesh is not None else 1)
-        rows = rows_of(n, self.mesh)
-
-        def normal(*shape):
-            return torch.randn(shape, generator=self.generator, device=real.device,
-                               dtype=torch.float32)[rows]
-
-        x_init = normal(n, *real.shape[1:])
-        noise = [(normal(n, self.config.nz), normal(n, *real.shape[1:]))
-                 for _ in range(self.config.num_timesteps)]
-        return x_init, noise
+        return sampler_draws(self.generator, (n, *real.shape[1:]), self.config.nz,
+                             self.config.num_timesteps, rows_of(n, self.mesh))
 
 
 def _to_range_0_1(x: np.ndarray) -> np.ndarray:
