@@ -20,6 +20,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from mudiff_torch.diffusion.schedule import DiffusionCoefficients, PosteriorCoefficients
+from mudiff_torch.utils.profiling import span
 
 
 def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -118,20 +119,22 @@ def sample_from_model(
     conds = [c.to(compute_dtype) for c in (cond1, cond2, cond3)]
     x = x_init.to(torch.float32)
     for step, i in enumerate(range(num_timesteps - 1, -1, -1)):
-        t = torch.full((batch,), i, dtype=torch.int64, device=device)
-        if noise is not None:
-            z, eps = noise[step]
-        else:
-            z = torch.randn((batch, nz), generator=generator, device=device,
-                            dtype=torch.float32)
-            eps = torch.randn(x.shape, generator=generator, device=device,
-                              dtype=torch.float32)
-        xc = x.to(compute_dtype)
-        x0_1 = generator1(xc, *conds, t, z)
-        x0_2 = generator2(xc, *conds, t, z, x0_1)
-        x = sample_posterior_combine(
-            post, x0_1.to(torch.float32), x0_2.to(torch.float32), x, t, eps
-        )
+        with span("sample.step", {"t": i}):
+            t = torch.full((batch,), i, dtype=torch.int64, device=device)
+            if noise is not None:
+                z, eps = noise[step]
+            else:
+                z = torch.randn((batch, nz), generator=generator, device=device,
+                                dtype=torch.float32)
+                eps = torch.randn(x.shape, generator=generator, device=device,
+                                  dtype=torch.float32)
+            xc = x.to(compute_dtype)
+            x0_1 = generator1(xc, *conds, t, z)
+            x0_2 = generator2(xc, *conds, t, z, x0_1)
+            with span("sample.posterior"):
+                x = sample_posterior_combine(
+                    post, x0_1.to(torch.float32), x0_2.to(torch.float32), x, t, eps
+                )
     return x
 
 

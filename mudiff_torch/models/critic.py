@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from mudiff_torch.nn.layers import Dense, StyleConv2d, get_timestep_embedding
 from mudiff_torch.ops import fir_down2
 from mudiff_torch.parallel.mesh import Mesh, gather_rows, rows_of
+from mudiff_torch.utils.profiling import span
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -158,15 +159,16 @@ class _Critic(nn.Module):
                tap: int = 0) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(the (B, 1) float32 logit, the activation after block ``tap``)."""
         dt = self.dtype
-        t_embed = _lrelu(self.t_embed(t))
-        h = self.start_conv(torch.cat([x.to(dt), x_t.to(dt)], dim=-1))
-        feat = None
-        for i in range(self.n_blocks):
-            h = getattr(self, f"conv{i + 1}")(h, t_embed)
-            if i + 1 == tap:
-                feat = h
-        h = _lrelu(self.final_conv(minibatch_stddev(h, mesh=self.mesh)))
-        return self.end_linear(h.sum(dim=(1, 2))).to(torch.float32), feat
+        with span("critic"):
+            t_embed = _lrelu(self.t_embed(t))
+            h = self.start_conv(torch.cat([x.to(dt), x_t.to(dt)], dim=-1))
+            feat = None
+            for i in range(self.n_blocks):
+                h = getattr(self, f"conv{i + 1}")(h, t_embed)
+                if i + 1 == tap:
+                    feat = h
+            h = _lrelu(self.final_conv(minibatch_stddev(h, mesh=self.mesh)))
+            return self.end_linear(h.sum(dim=(1, 2))).to(torch.float32), feat
 
 
 def _large_blocks(ngf: int) -> Tuple[Tuple[int, bool], ...]:

@@ -98,6 +98,7 @@ from mudiff_torch.ops.int8_conv import (
     int8_scope,
     recording,
 )
+from mudiff_torch.utils.profiling import span
 
 _SQRT2 = math.sqrt(2.0)
 # the pairwise gates: three pairs with three conditions, one with two
@@ -366,10 +367,12 @@ class NCSNppGenerator(nn.Module):
         self._res[name] = res
 
     def _region(self, name: str, fn, *args):
-        """``fn(*args)``, rematted when ``name`` is in ``remat_regions``."""
-        if name in self.remat_regions:
-            return remat.checkpointed(name, fn, *args)
-        return fn(*args)
+        """``fn(*args)`` under the span ``name``, rematted when ``name`` is
+        in ``remat_regions``."""
+        with span(name):
+            if name in self.remat_regions:
+                return remat.checkpointed(name, fn, *args)
+            return fn(*args)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Draw the JAX package's initial distributions (CPU generator)."""
@@ -480,8 +483,9 @@ class NCSNppGenerator(nn.Module):
                              ((int(s), *rows) if rows else int(s) for s in dropout_seeds)))
         # The scope covers the whole forward; in training mode it is off
         # (int8 is inference only: no straight-through estimator).
-        with int8_scope(self.int8_serving(), min_ch=self.int8_min_ch,
-                        calib=self.int8_calib) as scope:
+        with span("g2" if self.adaptive else "g1"), \
+                int8_scope(self.int8_serving(), min_ch=self.int8_min_ch,
+                           calib=self.int8_calib) as scope:
             out = self._forward(x, cond1, cond2, cond3, time_cond, z, pseudo_target, seeds)
         if scope.enabled and not recording():
             scope.check_consumed()
@@ -494,7 +498,9 @@ class NCSNppGenerator(nn.Module):
         if not self.adaptive:
             stems = self._stems()
             if not self.fused_stems:
-                return torch.cat([m(img, act) for m, img in zip(stems, [x] + conds)], dim=-1)
+                with span("stems"):
+                    return torch.cat([m(img, act) for m, img in zip(stems, [x] + conds)],
+                                     dim=-1)
             return self._region(
                 "stems", lambda s: fused_convfeat_apply(s, stems, act, dt, caches["stems"]),
                 torch.cat([x] + conds, dim=-1))
@@ -511,9 +517,10 @@ class NCSNppGenerator(nn.Module):
 
             x_feat, *feats = self._region("encode", encode, x, pseudo, *conds)
         else:
-            style = self.pseudo_gap(pseudo, act)
-            x_feat = self.encoder_x(x, act)
-            feats = [m(c, style, act) for m, c in zip(pcs, conds)]
+            with span("encode"):
+                style = self.pseudo_gap(pseudo, act)
+                x_feat = self.encoder_x(x, act)
+                feats = [m(c, style, act) for m, c in zip(pcs, conds)]
         allc = torch.cat(feats, dim=-1)
         gates = [getattr(self, n) for n in self.gates]
         weights = [getattr(self, f"feat_weight_c{i + 1}") for i in range(self.n_weights)]
@@ -553,14 +560,15 @@ class NCSNppGenerator(nn.Module):
         # its recompute) never reads or fills them
         caches = dict.fromkeys(self._int8_caches) if self.training else self._int8_caches
 
-        zemb = self.z_transform(z)
-        temb = None
-        if cfg.conditional:
-            if self.fourier:
-                temb = self.fourier_emb(torch.log(time_cond.to(torch.float32)))
-            else:
-                temb = get_timestep_embedding(time_cond, cfg.num_channels_dae)
-            temb = self.temb_dense1(act(self.temb_dense0(temb.to(dt))))
+        with span("temb"):
+            zemb = self.z_transform(z)
+            temb = None
+            if cfg.conditional:
+                if self.fourier:
+                    temb = self.fourier_emb(torch.log(time_cond.to(torch.float32)))
+                else:
+                    temb = get_timestep_embedding(time_cond, cfg.num_channels_dae)
+                temb = self.temb_dense1(act(self.temb_dense0(temb.to(dt))))
 
         if not cfg.centered:
             x = 2 * x - 1.0
@@ -578,17 +586,20 @@ class NCSNppGenerator(nn.Module):
                     h = self._region(name, getattr(self, name), h)
                 hs.append(h)
             if i_level != levels - 1:
-                if self.resblock_type == "ddpm":
-                    h = getattr(self, f"downsample_{i_level}")(hs[-1])
+                name = f"downsample_{i_level}"
+                if self.resblock_type == "ddpm":  # a pyramid-kind module: never rematted
+                    h = self._region(name, getattr(self, name), hs[-1])
                 else:
-                    h = self._block(f"downsample_{i_level}", hs[-1], temb, zemb, seeds)
+                    h = self._block(name, hs[-1], temb, zemb, seeds)
                 if self.progressive_input != "none":
-                    input_pyramid = getattr(self, f"pyramid_downsample_{i_level}")(input_pyramid)
-                    if self.progressive_input == "input_skip":
-                        h = getattr(self, f"combine_{i_level}")(input_pyramid, h)
-                    else:
-                        input_pyramid = _skip_add(input_pyramid, h, cfg.skip_rescale)
-                        h = input_pyramid
+                    with span("pyramid"):
+                        input_pyramid = getattr(self, f"pyramid_downsample_{i_level}")(
+                            input_pyramid)
+                        if self.progressive_input == "input_skip":
+                            h = getattr(self, f"combine_{i_level}")(input_pyramid, h)
+                        else:
+                            input_pyramid = _skip_add(input_pyramid, h, cfg.skip_rescale)
+                            h = input_pyramid
                 hs.append(h)
 
         h = hs[-1]
@@ -605,26 +616,29 @@ class NCSNppGenerator(nn.Module):
                 name = f"up_attn_{i_level}"
                 h = self._region(name, getattr(self, name), h)
             if self.progressive != "none":
-                if i_level == levels - 1:
-                    pyramid = self._pyramid_head(i_level, h)
-                elif self.progressive == "output_skip":
-                    pyramid = getattr(self, f"pyramid_upsample_nc_{i_level}")(pyramid)
-                    pyramid = pyramid + self._pyramid_head(i_level, h)
-                else:
-                    pyramid = getattr(self, f"pyramid_upsample_{i_level}")(pyramid)
-                    pyramid = _skip_add(pyramid, h, cfg.skip_rescale)
-                    h = pyramid
+                with span("pyramid"):
+                    if i_level == levels - 1:
+                        pyramid = self._pyramid_head(i_level, h)
+                    elif self.progressive == "output_skip":
+                        pyramid = getattr(self, f"pyramid_upsample_nc_{i_level}")(pyramid)
+                        pyramid = pyramid + self._pyramid_head(i_level, h)
+                    else:
+                        pyramid = getattr(self, f"pyramid_upsample_{i_level}")(pyramid)
+                        pyramid = _skip_add(pyramid, h, cfg.skip_rescale)
+                        h = pyramid
             if i_level != 0:
-                if self.resblock_type == "ddpm":
-                    h = getattr(self, f"upsample_{i_level}")(h)
+                name = f"upsample_{i_level}"
+                if self.resblock_type == "ddpm":  # a pyramid-kind module: never rematted
+                    h = self._region(name, getattr(self, name), h)
                 else:
-                    h = self._block(f"upsample_{i_level}", h, temb, zemb, seeds)
+                    h = self._block(name, h, temb, zemb, seeds)
         assert not hs
 
-        if self.progressive == "output_skip":
-            h = pyramid
-        else:
-            h = self.final_conv(act(self.final_norm(h)))
-        if not cfg.not_use_tanh:
-            return torch.tanh(h.to(torch.float32))
-        return h.to(torch.float32)
+        with span("head"):
+            if self.progressive == "output_skip":
+                h = pyramid
+            else:
+                h = self.final_conv(act(self.final_norm(h)))
+            if not cfg.not_use_tanh:
+                return torch.tanh(h.to(torch.float32))
+            return h.to(torch.float32)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from mudiff_torch.nn.initializers import default_init, stylegan_dense_init
 from mudiff_torch.nn.layers import NIN, Conv1x1, Conv3x3, Dense
+from mudiff_torch.utils.profiling import span
 from mudiff_torch.ops import (
     conv_downsample_2d,
     fir_down2,
@@ -108,7 +109,8 @@ class AffineGroupNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.num_groups, self.dtype, self.weight, self.bias)
+        with span("nn.norm"):
+            return group_norm(x, self.num_groups, self.dtype, self.weight, self.bias)
 
 
 class AdaptiveGroupNorm(nn.Module):
@@ -127,9 +129,10 @@ class AdaptiveGroupNorm(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
-        gamma, beta = self.style(style).chunk(2, dim=-1)
-        h = group_norm(x, _num_groups(self.channels), self.dtype)
-        return gamma[:, None, None, :] * h + beta[:, None, None, :]
+        with span("nn.norm"):
+            gamma, beta = self.style(style).chunk(2, dim=-1)
+            h = group_norm(x, _num_groups(self.channels), self.dtype)
+            return gamma[:, None, None, :] * h + beta[:, None, None, :]
 
 
 class PlainGroupNorm(nn.Module):
@@ -137,7 +140,8 @@ class PlainGroupNorm(nn.Module):
     the input's dtype (reference layerspp.py:56-65)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, _num_groups(x.shape[-1]), x.dtype)
+        with span("nn.norm"):
+            return group_norm(x, _num_groups(x.shape[-1]), x.dtype)
 
 
 class GaussianFourierProjection(nn.Module):

@@ -38,6 +38,7 @@ import torch.nn as nn
 from mudiff_torch.nn.blocks import AdaptiveGroupNorm, _num_groups, group_norm
 from mudiff_torch.nn.layers import Conv3x3, Dense
 from mudiff_torch.ops import conv3x3
+from mudiff_torch.utils.profiling import span
 from mudiff_torch.ops.int8_conv import (
     Int8WeightCache,
     int8_conv_routed,
@@ -60,7 +61,9 @@ class ConvFeatBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, act: Act) -> torch.Tensor:
         h = self.conv1(x)
-        return self.conv2(act(group_norm(h, _num_groups(h.shape[-1]), h.dtype)))
+        with span("nn.norm"):
+            h = group_norm(h, _num_groups(h.shape[-1]), h.dtype)
+        return self.conv2(act(h))
 
 
 class ConvBlock(nn.Module):
@@ -91,7 +94,9 @@ class ConvBlockGAP(nn.Module):
 
     def forward(self, x: torch.Tensor, act: Act) -> torch.Tensor:
         h = self.conv1(x)
-        h = self.conv2(act(group_norm(h, _num_groups(h.shape[-1]), h.dtype)))
+        with span("nn.norm"):
+            h = group_norm(h, _num_groups(h.shape[-1]), h.dtype)
+        h = self.conv2(act(h))
         return self.fc(h.mean(dim=(1, 2)))
 
 
@@ -141,7 +146,8 @@ def _concat_cout(kernels: Sequence[torch.Tensor]) -> torch.Tensor:
 def stacked_group_norm(h: torch.Tensor, n_stems: int,
                        groups_per_stem: int) -> torch.Tensor:
     """Non-affine GroupNorm over a stem-stacked tensor, groups inside stems."""
-    return group_norm(h, n_stems * groups_per_stem, h.dtype)
+    with span("nn.norm"):
+        return group_norm(h, n_stems * groups_per_stem, h.dtype)
 
 
 def fused_convfeat_apply(stacked: torch.Tensor, params: List[ConvFeatBlock],

@@ -19,6 +19,10 @@ port ride along:
   generators: dropout masks come from seeds drawn before the forward
   (``nn/blocks.py``), so the recompute draws the same masks.
   ``preserve_rng_state`` is therefore off.
+
+The recompute runs under the span ``remat.<name>``
+(``utils/profiling.py``): a profile puts the recompute's kernels, which
+the autograd thread launches, down to the region.
 """
 
 from __future__ import annotations
@@ -29,7 +33,16 @@ from typing import Any, Callable
 import torch
 import torch.utils.checkpoint
 
-from mudiff_torch.ops._dispatch import current_mode, restored
+from mudiff_torch.ops._dispatch import Mode, current_mode, restored
+from mudiff_torch.utils.profiling import span
+
+
+@contextlib.contextmanager
+def _recompute(name: str, mode: Mode):
+    """The recompute's context: the forward's kernel mode, under the span
+    ``remat.<name>`` (the span's switch read when the recompute starts)."""
+    with restored(mode), span(f"remat.{name}"):
+        yield
 
 
 def checkpointed(name: str, fn: Callable[..., Any], *args: Any) -> Any:
@@ -38,4 +51,4 @@ def checkpointed(name: str, fn: Callable[..., Any], *args: Any) -> Any:
     mode = current_mode()
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False, preserve_rng_state=False,
-        context_fn=lambda: (contextlib.nullcontext(), restored(mode)))
+        context_fn=lambda: (contextlib.nullcontext(), _recompute(name, mode)))

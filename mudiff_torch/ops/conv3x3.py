@@ -33,6 +33,7 @@ from mudiff_torch.ops._dispatch import (
     restored,
     use_kernel,
 )
+from mudiff_torch.utils.profiling import span
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
@@ -172,10 +173,12 @@ class _Conv3x3(torch.autograd.Function):
         dx = dw = db = None
         with restored(ctx.mode):
             if ctx.needs_input_grad[0]:
-                w_flip = w.flip(0, 1).transpose(2, 3).contiguous()
-                dx = _conv(g, w_flip, None)
+                with span("ops.conv3x3.dx"):
+                    w_flip = w.flip(0, 1).transpose(2, 3).contiguous()
+                    dx = _conv(g, w_flip, None)
             if ctx.needs_input_grad[1]:
-                dw = conv3x3_weight_grad(x, g).to(w.dtype)
+                with span("ops.conv3x3.dw"):
+                    dw = conv3x3_weight_grad(x, g).to(w.dtype)
             if ctx.needs_input_grad[2]:
                 db = g.to(torch.float32).sum(dim=(0, 1, 2))
         return dx, dw, db

@@ -80,6 +80,7 @@ from mudiff_torch.models.generator import resblock_count
 from mudiff_torch.nn import remat
 from mudiff_torch.parallel.mesh import Mesh, average_scalars, rows_of
 from mudiff_torch.train.state import TrainState
+from mudiff_torch.utils.profiling import span
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -190,31 +191,35 @@ def d_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws,
     state.materialize()
     c1, c2, c3, real = batch
     b, t = real.shape[0], draws.t
-    x_t, x_tp1 = q_sample_pairs(state.coeff, real, t, draws.noise_t, draws.noise_tp1)
+    with span("train.d_step.real"):
+        x_t, x_tp1 = q_sample_pairs(state.coeff, real, t, draws.noise_t, draws.noise_tp1)
+        if with_r1:
+            x_t.requires_grad_(True)
+        logit_real, _ = state.d(x_t, t, x_tp1)
+        err_real = _softplus_mean(-logit_real)
     if with_r1:
-        x_t.requires_grad_(True)
-    logit_real, _ = state.d(x_t, t, x_tp1)
-    err_real = _softplus_mean(-logit_real)
-    if with_r1:
-        (grad_x,) = torch.autograd.grad(logit_real.sum(), x_t, create_graph=True)
-        per_sample = grad_x.reshape(b, -1).square().sum(dim=1)
-        penalty = (cfg.r1_gamma / 2.0) * per_sample.mean()
+        with span("train.d_step.r1"):
+            (grad_x,) = torch.autograd.grad(logit_real.sum(), x_t, create_graph=True)
+            per_sample = grad_x.reshape(b, -1).square().sum(dim=1)
+            penalty = (cfg.r1_gamma / 2.0) * per_sample.mean()
     else:
         penalty = torch.zeros((), dtype=torch.float32, device=real.device)
 
-    with torch.no_grad():  # dropout active, as the JAX D step's train=True
-        x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z, dropout_seeds=draws.dropout_g1,
-                         dropout_rows=draws.dropout_rows)
-        x0_g2 = state.g2(x_tp1, c1, c2, c3, t, draws.z, pseudo_target=x0_g1,
-                         dropout_seeds=draws.dropout_g2, dropout_rows=draws.dropout_rows)
-    pos_g1 = sample_posterior(state.pos_coeff, x0_g1, x_tp1, t, draws.noise_post1)
-    pos_g2 = sample_posterior(state.pos_coeff, x0_g2, x_tp1, t, draws.noise_post2)
-    logit_f1, _ = state.d(pos_g1, t, x_tp1)
-    logit_f2, _ = state.d(pos_g2, t, x_tp1)
-    err_fake = _softplus_mean(logit_f1) + _softplus_mean(logit_f2)
+    with span("train.d_step.fake"):
+        with torch.no_grad():  # dropout active, as the JAX D step's train=True
+            x0_g1 = state.g1(x_tp1, c1, c2, c3, t, draws.z, dropout_seeds=draws.dropout_g1,
+                             dropout_rows=draws.dropout_rows)
+            x0_g2 = state.g2(x_tp1, c1, c2, c3, t, draws.z, pseudo_target=x0_g1,
+                             dropout_seeds=draws.dropout_g2, dropout_rows=draws.dropout_rows)
+        pos_g1 = sample_posterior(state.pos_coeff, x0_g1, x_tp1, t, draws.noise_post1)
+        pos_g2 = sample_posterior(state.pos_coeff, x0_g2, x_tp1, t, draws.noise_post2)
+        logit_f1, _ = state.d(pos_g1, t, x_tp1)
+        logit_f2, _ = state.d(pos_g2, t, x_tp1)
+        err_fake = _softplus_mean(logit_f1) + _softplus_mean(logit_f2)
 
-    total = err_real + penalty + err_fake
-    grads = _grads(total, list(state.d.parameters()))
+    with span("train.d_step.grads"):
+        total = err_real + penalty + err_fake
+        grads = _grads(total, list(state.d.parameters()))
     aux = {"D_total": total, "D_real": err_real, "D_fake": err_fake, "R1": penalty}
     return grads, {k: v.detach() for k, v in aux.items()}
 
@@ -273,16 +278,19 @@ def g_loss_and_grads(state: TrainState, batch: Batch, draws: TrainDraws
     losses.  D's parameters get no gradient."""
     cfg = state.config
     real = batch[3]
-    fwd = g_forward(state, batch, draws)
-    mask = mask_terms(state.att_conv, fwd)
-    mask_loss = mask["term_1"] + mask["term_2"]
-    err_adv = _softplus_mean(-fwd["logit_g1"]) + _softplus_mean(-fwd["logit_g2"])
-    err_l1 = (torch.mean(torch.abs(fwd["x0_g1"] - real))
-              + torch.mean(torch.abs(fwd["x0_g2"] - real)))
-    total = err_adv + cfg.lambda_l1_loss * err_l1 + cfg.lambda_mask_loss * mask_loss
+    with span("train.g_step.forward"):
+        fwd = g_forward(state, batch, draws)
+    with span("train.g_step.mask"):
+        mask = mask_terms(state.att_conv, fwd)
+        mask_loss = mask["term_1"] + mask["term_2"]
+        err_adv = _softplus_mean(-fwd["logit_g1"]) + _softplus_mean(-fwd["logit_g2"])
+        err_l1 = (torch.mean(torch.abs(fwd["x0_g1"] - real))
+                  + torch.mean(torch.abs(fwd["x0_g2"] - real)))
+        total = err_adv + cfg.lambda_l1_loss * err_l1 + cfg.lambda_mask_loss * mask_loss
 
     p1, p2 = list(state.g1.parameters()), list(state.g2.parameters())
-    grads = _grads(total, p1 + p2)
+    with span("train.g_step.grads"):
+        grads = _grads(total, p1 + p2)
     aux = {"G_total": total, "G_adv": err_adv, "G_L1": err_l1, "G_mask": mask_loss}
     return (grads[:len(p1)], grads[len(p1):]), {k: v.detach() for k, v in aux.items()}
 
@@ -308,10 +316,12 @@ def make_d_step() -> Callable:
 
     def d_step(state: TrainState, batch: Batch, draws: TrainDraws,
                with_r1: bool) -> Dict[str, torch.Tensor]:
-        with deterministic_cudnn():
-            grads, aux = d_loss_and_grads(state, batch, draws, with_r1)
-        state.apply_d_updates(state.sync_grads("d", grads))
-        return average_scalars(aux, state.mesh)
+        with span("train.d_step", {"step": state.step, "r1": bool(with_r1)}):
+            with deterministic_cudnn():
+                grads, aux = d_loss_and_grads(state, batch, draws, with_r1)
+            with span("train.d_step.adam"):
+                state.apply_d_updates(state.sync_grads("d", grads))
+            return average_scalars(aux, state.mesh)
 
     return d_step
 
@@ -322,11 +332,13 @@ def make_g_step() -> Callable:
     and the EMA."""
 
     def g_step(state: TrainState, batch: Batch, draws: TrainDraws) -> Dict[str, torch.Tensor]:
-        with deterministic_cudnn():
-            (grads_g1, grads_g2), aux = g_loss_and_grads(state, batch, draws)
-        state.apply_g_updates(state.sync_grads("g1", grads_g1),
-                              state.sync_grads("g2", grads_g2))
-        return average_scalars(aux, state.mesh)
+        with span("train.g_step", {"step": state.step}):
+            with deterministic_cudnn():
+                (grads_g1, grads_g2), aux = g_loss_and_grads(state, batch, draws)
+            with span("train.g_step.adam"):
+                state.apply_g_updates(state.sync_grads("g1", grads_g1),
+                                      state.sync_grads("g2", grads_g2))
+            return average_scalars(aux, state.mesh)
 
     return g_step
 

@@ -9,17 +9,32 @@ The port of ``mudiff_tpu/utils/profiling.py``:
 * ``device_memory_stats`` reads ``torch.cuda.memory_stats`` of each
   visible card (an empty dict without one).
 * ``StepTimer`` splits a logging window into data wait and the rest.
+* ``span(name, args)`` is the port's own range ``mudiff.<name>`` around
+  a part of the work (a sampler step, a generator, a region, a norm, the
+  critic, K1's two gradients, a remat recompute, a part of a training
+  step).  While a ``torch.profiler`` records, it is a
+  ``record_function`` on the profiler's clock, the clock of the device
+  kernels, so a kernel can be put down to the spans open where it was
+  launched (``perfbench/attribution.py``); at every other time it is one
+  shared no-op context and costs one flag read.  The profiler's own
+  enabled flag is the switch: ``maybe_profile``'s traces and any other
+  ``torch.profiler`` window get the spans.  The kernel wrappers' forwards
+  carry none: at hundreds a training iteration they cost more under the
+  profiler than they tell.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
-from typing import Dict, Iterator, Optional
+from typing import Any, ContextManager, Dict, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
+_OFF = contextlib.nullcontext()
 _ACTIVE: Dict[str, "torch.profiler.profile"] = {}
 
 
@@ -46,6 +61,17 @@ def maybe_profile(step: int, out_dir: Optional[str] = None, start: int = 10,
             os.makedirs(out_dir, exist_ok=True)
             prof.export_chrome_trace(
                 os.path.join(out_dir, f"trace_steps_{start}-{start + num - 1}.json"))
+
+
+def span(name: str, args: Optional[Dict[str, Any]] = None) -> ContextManager:
+    """``mudiff.<name>`` as a profiler range while a profiler records (its
+    ``args`` as the range's JSON arguments), else the shared no-op.
+    Names are fixed strings; what varies (a step, a timestep) goes in
+    ``args``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(
+        f"mudiff.{name}", None if args is None else json.dumps(args, default=str))
 
 
 def device_memory_stats() -> Dict[str, Dict[str, float]]:

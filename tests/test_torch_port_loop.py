@@ -272,16 +272,31 @@ def test_train_refuses_what_is_not_ported(data_root, tmp_path):
 
 
 def test_maybe_profile_traces_the_steps_asked_for(tmp_path):
-    """Steps 1-2 of 0-3 are traced into the directory given; none without one."""
+    """Steps 1-2 of 0-3 are traced into the directory given; none without
+    one.  The trace holds the port's own spans (``utils/profiling.py``
+    ``span``) of the D step traced, its norms among them; the untraced
+    steps make none."""
+    from mudiff_torch.train.steps import make_d_step
+
+    cfg = MuDiffConfig(**{**TINY, "num_channels_dae": 8, "ngf": 2, "use_bf16": False})
+    state = create_train_state(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = tuple(torch.randn(1, 64, 64, 1, generator=gen) for _ in range(4))
+    d_step = make_d_step()
     timer = StepTimer()
     for step in range(4):
         with maybe_profile(step, str(tmp_path / "trace"), start=1, num=2):
             torch.ones(8).sum()
+            if step == 2:
+                d_step(state, batch, TrainDraws.draw(cfg, batch[3], gen), False)
         with maybe_profile(step, None, start=1, num=2):
             torch.ones(8).sum()
         timer.mark_step_done()
         timer.mark_data_ready()
     assert os.listdir(tmp_path) == ["trace"]
     trace = tmp_path / "trace" / "trace_steps_1-2.json"
-    assert json.loads(trace.read_text())["traceEvents"]
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"mudiff.train.d_step", "mudiff.train.d_step.fake", "mudiff.g1",
+            "mudiff.nn.norm", "mudiff.critic"} <= names
     assert 0.0 <= timer.data_time <= timer.window()
