@@ -16,10 +16,11 @@ ends the run with a non-zero exit code:
    non-trivial weights, each request a batch of 4 slices through the
    4-step bf16 sampler with bf16-score attention.  The kernels' launch
    counts are zeroed just before and read just after; each must equal
-   what the module structure says (K3 launches 0 times here).  A CUDA
+   what the module structure says (K3 launches 0 times here; every
+   GroupNorm / AdaGN runs K5, on its 16-byte-vector path).  A CUDA
    call that records a graph runs through the kernels, forward and
-   backward; a second backward through K1 or K3 raises, through K2 it
-   runs the kernels;
+   backward; a second backward through K1, K3 or K5 raises, through K2
+   it runs the kernels;
    the int8 leg: the same requests served W8A8 (``use_int8``, K4 on
    every routed conv), with dynamic scales and then with the static
    scales that ``calibrate_sampler`` records over CALIB_BATCHES seeded
@@ -92,11 +93,13 @@ ends the run with a non-zero exit code:
    (profiled) medians and the peak memory;
 9. at every distinct shape any path gave each kernel (and, for K3 and
    its backward, the nf=128 width and a ragged length; for K2, the
-   shapes of ``FIR_EXTRA_SHAPES`` on its one-channel path), hold the
-   kernel against its plain PyTorch version (bf16 and fp32), and time the
-   kernel, the plain version and one library call computing the same
-   function (cuDNN conv, depthwise conv, conv-transpose,
-   scaled_dot_product_attention and its backward) with CUDA events,
+   shapes of ``FIR_EXTRA_SHAPES`` on its one-channel path; for K5, the
+   benchmark's ``K5_PATHS``), hold the kernel against its plain PyTorch
+   version (bf16 and fp32; K5 in the path's dtypes, as ``K5_ULPS``
+   says), and time the kernel, the plain version and one library call
+   computing the same function (cuDNN conv, depthwise conv,
+   conv-transpose, scaled_dot_product_attention and its backward, NCHW
+   ``F.group_norm``) with CUDA events,
    device time only (``time_ms``); K2 also with the L2 cold
    (``time_cold_ms``), and its share of the bound is read on that
    time.  K4 is held bit for bit (the fused kernel's s32 accumulator
@@ -1139,6 +1142,189 @@ def int8_rows(shapes, peaks, int8_peak, card):
     return rows
 
 
+# K5 (GroupNorm / AdaGN and its SiLU) against its plain version under
+# plain_kernels(), at every shape any path gave it and at the benchmark's
+# shapes (K5_PATHS: the recipe at nf and batch, one forward of G1 and G2
+# recorded).  Only the statistics' order of sums differs: given K5's own
+# mean and rstd the plain chain gives K5's bits at every element, and the
+# two paths' means agree within K5_STATS_TOL standard deviations, their
+# rstds within K5_STATS_TOL of each other.  Against the plain chain's own
+# statistics at least K5_EQUAL of the elements are equal; a 16-bit output
+# is at most K5_ULPS ulps off at the scale of the chain's last rounded sum
+# (the larger of n w and b, of gamma h and beta, or |n|), beyond what the
+# statistics' difference moves it (``k5_ulps_at_scale``): a one-ulp change
+# of h that a sum cancels is many ulps of the small result.  The bound: h
+# flips one of its ulps (2 at gamma h's scale), gamma h and the sum each
+# round once more (1 + 1), SiLU's slope (1.1) and its rounding (1): 5.4;
+# an H100 read at most 4.0 over 130 shapes.  An fp32 output
+# lies within K5_FP32_TOL of its largest magnitude.  Two runs give the same bits.  ``byte_ms`` counts each input
+# and output byte once (the roofline); ``two_pass_ms`` reads the input
+# twice, as K5's two passes must (6 bytes an element in bf16).
+K5_PATHS = ((128, 8), (64, 32))
+K5_EQUAL = 0.999
+K5_ULPS = 6
+K5_STATS_TOL = 1e-5
+K5_FP32_TOL = 1e-5
+
+
+def ulp_distance(a, b):
+    """|a - b| elementwise in units in the last place of their (16- or
+    32-bit float) dtype; +0 and -0 are 0 apart."""
+    import torch
+
+    bits = 8 * a.element_size()
+    view = {16: torch.int16, 32: torch.int32}[bits]
+
+    def ordered(t):
+        i = t.contiguous().view(view).to(torch.int64)
+        return torch.where(i < 0, -(i & (2 ** (bits - 1) - 1)), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def k5_path_keys(nf: int, batch: int) -> list:
+    """``group_norm_act``'s record keys of one G1 and one G2 forward of the
+    bf16 sampler at brats_recipe(nf) and IMAGE², at ``batch``."""
+    import torch
+
+    from mudiff_torch import brats_recipe, build_sampler, ops
+
+    cfg = brats_recipe(num_channels_dae=nf, image_size=IMAGE)
+    s = build_sampler(cfg, device=DEVICE, generator=torch.Generator().manual_seed(SEED))
+    g = torch.Generator(DEVICE).manual_seed(SEED + 40)
+    x = torch.randn((1, IMAGE, IMAGE, 1), generator=g, device=DEVICE)
+    t, z = torch.ones((1,), dtype=torch.int64, device=DEVICE), torch.randn((1, cfg.nz), device=DEVICE)
+    log = []
+    with torch.inference_mode(), ops.record_calls(log):
+        s.g1(x, x, x, x, t, z)
+        s.g2(x, x, x, x, t, z, pseudo_target=x)
+    return sorted({((batch, *key[0][1:]), *key[1:]) for name, key in log
+                   if name == "group_norm_act"}, key=str)
+
+
+def k5_inputs(key, g):
+    """x (a channel slice where the key's pixel stride is wider), weight,
+    bias and style of a ``group_norm_act`` record key."""
+    import torch
+
+    (b, h, w, c), stride, groups, dtype, out_dtype, kind, silu = key
+    stride = stride or c
+    x = (torch.randn((b, h, w, stride), generator=g, device=DEVICE) * 1.7 + 0.5).to(dtype)
+    x = x[..., stride - c:]
+    weight = bias = style = None
+    if kind == "affine":
+        weight = 1 + 0.2 * torch.randn((c,), generator=g, device=DEVICE)
+        bias = 0.2 * torch.randn((c,), generator=g, device=DEVICE)
+    elif kind == "style":
+        style = torch.cat([1 + 0.2 * torch.randn((b, c), generator=g, device=DEVICE),
+                           0.2 * torch.randn((b, c), generator=g, device=DEVICE)], dim=-1)
+        style = style.to(out_dtype)
+    return x, groups, out_dtype, weight, bias, style, silu
+
+
+def k5_ulps_at_scale(out, ref, x, groups, weight, bias, style, plain_stats, k5_stats) -> float:
+    """max |out - ref| in ulps of their 16-bit dtype at the magnitude of
+    the chain's last rounded sum (or of ``ref``, if larger): |n| plain,
+    max(|n w|, |b|) affine, max(|gamma n|, |beta|) AdaGN, n the input
+    normalised by the plain chain's (mean, rstd), each (B, G); less what
+    the two paths' statistics move an element to first order (times 1.1,
+    SiLU's largest slope): |w or gamma| (|d mean| rstd + |n| |d rstd| /
+    rstd), which near n = 0 is many ulps of a small value."""
+    import torch
+
+    b, h, w, c = x.shape
+
+    def per_channel(t):  # (B, G) -> (B, 1, 1, C)
+        return t.repeat_interleave(c // groups, dim=1)[:, None, None, :]
+
+    mean, rstd = (per_channel(t) for t in plain_stats)
+    d_mean, d_rstd = (per_channel((k - p).abs()) for k, p in zip(k5_stats, plain_stats))
+    n = (x.float() - mean) * rstd
+    if style is not None:
+        gamma, beta = (t[:, None, None, :] for t in style.float().chunk(2, dim=-1))
+        scale, mag = gamma.abs(), torch.maximum((gamma * n).abs(), beta.abs())
+    elif weight is not None:
+        scale, mag = weight.abs(), torch.maximum((n * weight).abs(), bias.abs())
+    else:
+        scale, mag = torch.ones_like(n), n.abs()
+    moved = 1.1 * scale * (d_mean * rstd + n.abs() * d_rstd / rstd)
+    mag = torch.maximum(mag, ref.float().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(torch.finfo(out.dtype).tiny))))
+    ulp = ulp * torch.finfo(out.dtype).eps  # eps: 2^-(mantissa bits)
+    excess = ((out.float() - ref.float()).abs() - moved).clamp_min(0.0)
+    return float((excess / ulp).max())
+
+
+def k5_rows(shapes, peaks, card):
+    """K5 at each shape: checks as K5_ULPS says, device times of K5, the
+    plain chain and NCHW ``F.group_norm`` (no modulation or SiLU; the port
+    never calls it), bound.  ``shapes`` maps record keys to launch
+    counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from mudiff_torch import ops
+    from mudiff_torch.ops import group_norm as k5
+
+    _, fp32_peak, hbm = peaks
+    g = torch.Generator(DEVICE).manual_seed(SEED + 3)
+    rows = []
+    for key, counts in sorted(shapes.items(), key=str):
+        args = k5_inputs(key, g)
+        x, groups, out_dtype, weight, bias, style, silu = args
+        b, h, w, c = x.shape
+        run = lambda: ops.group_norm_act(*args)
+
+        def plain():
+            with ops.plain_kernels():
+                return run()
+
+        out, again, ref = run(), run(), plain()
+        same_bits = bool((ulp_distance(out, again) == 0).all())
+        _, mean, rstd = k5._launch(x, groups, out_dtype, weight, bias, style, silu, k5.EPS)
+        given = k5.group_norm_act_plain(*args, stats=(mean, rstd))
+        exact = bool((ulp_distance(out, given) == 0).all())
+        pm, pr = k5.group_stats_plain(x, groups)
+        mean_diff = float(((mean - pm) * pr).abs().max())
+        rstd_diff = float(((rstd - pr) / pr).abs().max())
+        ulps = ulp_distance(out, ref)
+        err = float((out.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        equal = float((ulps == 0).float().mean())
+        at_scale = k5_ulps_at_scale(out, ref, x, groups, weight, bias, style, (pm, pr),
+                                    (mean, rstd))
+        if not (same_bits and exact and bool(torch.isfinite(out).all())
+                and max(mean_diff, rstd_diff) <= K5_STATS_TOL and equal >= K5_EQUAL):
+            raise AssertionError(f"K5 {key}: same bits {same_bits}, plain chain on K5's "
+                                 f"statistics exact {exact}, statistics {mean_diff:.3g} / "
+                                 f"{rstd_diff:.3g}, {equal:.6f} equal")
+        if out.element_size() == 2 and at_scale > K5_ULPS:
+            raise AssertionError(f"K5 {key}: {at_scale:.3g} ulps at the sum's scale")
+        if out.element_size() == 4 and err > K5_FP32_TOL * scale:
+            raise AssertionError(f"K5 {key}: max abs err {err:.3g} of {scale:.3g}")
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        wl, bl = (None if t is None else t.to(x.dtype) for t in (weight, bias))
+        n = x.numel()
+        in_size, out_size = x.element_size(), out.element_size()
+        extra = 8 * c if weight is not None else (2 * b * c * out_size if style is not None else 0)
+        row = {
+            "kernel": "group_norm_act", "x": [b, h, w, c], "stride": key[1], "groups": groups,
+            "dtype": str(x.dtype)[6:], "out_dtype": str(out_dtype)[6:], "kind": key[5],
+            "silu": silu, "path": "vector" if k5.vector_path(x, key[1] or c) else "scalar",
+            **counts, "err_bf16": err, "max_ulps": int(ulps.max()), "equal_share": equal,
+            "ulps_at_sum_scale": at_scale, "mean_diff_std": mean_diff, "rstd_rel_diff": rstd_diff,
+            "ms": time_ms(run), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lambda: F.group_norm(x_nchw, groups, wl, bl, k5.EPS)),
+            "flop_ms": 12.0 * n / fp32_peak * 1e3,
+            "byte_ms": ((in_size + out_size) * n + extra) / hbm * 1e3,
+            "two_pass_ms": ((2 * in_size + out_size) * n + extra) / hbm * 1e3,
+        }
+        rows.append(with_bound_share(row))
+        print(json.dumps({"card": card, **rows[-1]}), flush=True)
+        del out, again, ref, given, ulps, x_nchw
+    return rows
+
+
 def int8_samplers(cfg, sampler, seed: int):
     """The int8 leg's samplers: ``sampler``'s G1 and G2 weights served
     W8A8 with dynamic scales, and with the static scales that
@@ -1275,6 +1461,8 @@ SOURCES = {
                           "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
     # XLA-lowered on the TPU, not Pallas
     "int8_conv3x3": ("mudiff_torch/csrc/int8_conv_kernel.cu", "mudiff_tpu/ops/int8_conv.py:268"),
+    # none: the JAX package leaves GroupNorm to XLA
+    "group_norm_act": ("mudiff_torch/csrc/group_norm_kernel.cu", "none (XLA's GroupNorm)"),
 }
 
 
@@ -1393,9 +1581,9 @@ def kernel_summary(name, rows, launches, path=None):
 
 def grad_runs_through_kernels(device) -> dict:
     """A CUDA call that records a graph runs through the kernels, forward
-    and backward; a second backward through K1 or K3 raises (they are
-    once differentiable); one through K2 runs the kernels.  Returns the
-    launch counts of the calls."""
+    and backward (K5's backward is plain PyTorch); a second backward
+    through K1, K3 or K5 raises (they are once differentiable); one through
+    K2 runs the kernels.  Returns the launch counts of the calls."""
     import torch
 
     from mudiff_torch import ops
@@ -1405,7 +1593,8 @@ def grad_runs_through_kernels(device) -> dict:
     w = torch.randn((3, 3, 8, 8), generator=g, device=device)
     q = torch.randn((1, 64, 8), generator=g, device=device, requires_grad=True)
     ops.reset_launch_counts()
-    for out, inp in ((ops.conv3x3(x, w), x), (ops.flash_attn(q, q, q, 0.5), q)):
+    for out, inp in ((ops.conv3x3(x, w), x), (ops.flash_attn(q, q, q, 0.5), q),
+                     (ops.group_norm_act(x, 4, x.dtype, silu=True), x)):
         (gx,) = torch.autograd.grad(torch.tanh(out).sum(), inp, create_graph=True)
         try:
             gx.square().sum().backward()
@@ -1413,13 +1602,14 @@ def grad_runs_through_kernels(device) -> dict:
             if "once_differentiable" not in str(err):
                 raise
         else:
-            raise AssertionError("a second backward through K1 or K3 did not raise")
+            raise AssertionError("a second backward through K1, K3 or K5 did not raise")
     (gx,) = torch.autograd.grad(torch.tanh(ops.fir_down2(x)).sum(), x, create_graph=True)
     (gxx,) = torch.autograd.grad(gx.square().sum(), x)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     want = {"conv3x3": 2, "fir_down2": 2, "fir_up2": 2, "flash_attn": 1,
-            "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1, "int8_conv3x3": 0}
+            "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1, "int8_conv3x3": 0,
+            "group_norm_act": 1}
     if counts != want or not bool(torch.isfinite(gxx).all()):
         raise AssertionError(f"graph-recording calls launched {counts}, want {want}")
     return counts
@@ -1670,7 +1860,7 @@ def r1_grads(state, batch, draws):
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
-KERNEL_MODULES = ("conv3x3", "fir", "flash_attn", "int8_conv")
+KERNEL_MODULES = ("conv3x3", "fir", "flash_attn", "int8_conv", "group_norm")
 
 
 @contextlib.contextmanager
@@ -3837,10 +4027,13 @@ def main(argv=None) -> int:
     launches = ops.launch_counts()
     k1_path_check("main path", log)
     k3_path_check("main path", log)
+    k5_paths = dict(ops.group_norm_act.path_launches)
+    if k5_paths != {"vector": launches["group_norm_act"], "scalar": 0}:
+        raise AssertionError(f"main path: K5 by path {k5_paths}")
     per_sample = sampler.kernel_launches_per_sample()
     expected = {k: REQUESTS * v for k, v in per_sample.items()}
     print(json.dumps({"launch_counts": launches, "expected": expected,
-                      "request_s": seconds}), flush=True)
+                      "k5_path_launches": k5_paths, "request_s": seconds}), flush=True)
     if launches != expected:
         raise AssertionError(f"launches {launches} != structure's {expected}")
     for out in outs:
@@ -3904,11 +4097,14 @@ def main(argv=None) -> int:
     int8_shapes = {(shape, cout, torch.bfloat16, torch.bfloat16, mode): dict.fromkeys(PATHS, 0)
                    for shape, cout in INT8_EXTRA_SHAPES for mode in ("dynamic", "static")}
     int8_shapes.update(counts["int8_conv3x3"])
+    k5_shapes = {key: dict.fromkeys(PATHS, 0) for nf, b in K5_PATHS for key in k5_path_keys(nf, b)}
+    k5_shapes.update(counts["group_norm_act"])
 
     # -- each kernel against its plain version, timed ------------------------
     rows = (conv_rows(counts["conv3x3"], peaks, card) + fir_rows(fir_shapes, peaks, card)
             + flash_rows(flash_shapes, peaks, card) + flash_bwd_rows(bwd_shapes, peaks, card)
-            + int8_rows(int8_shapes, peaks, INT8_PEAKS[variant], card))
+            + int8_rows(int8_shapes, peaks, INT8_PEAKS[variant], card)
+            + k5_rows(k5_shapes, peaks, card))
 
     # -- the whole sample, kernels vs plain versions -------------------------
     sampler32 = build_sampler(cfg, device=DEVICE, attn="einsum", compute_dtype=torch.float32)

@@ -20,7 +20,8 @@ G1 encodes x_t and the conditions with ConvFeatBlock stems; G2 embeds
 G1's prediction to a 256-d style (always 256, whatever ``z_emb_dim``:
 ``generator.py:333-336``), encodes the conditions with style-modulated
 stems and fuses them with pairwise gates.  With one-channel images the
-stems run fused (``nn/fused_stems.py``; G1 two launches, G2 three), else
+stems run fused (``nn/fused_stems.py``; G1 two conv launches and one K5
+call, G2 three and three), else
 one module each; the gates run fused at any channel count.  Then the
 UNet: resblocks, the pyramids, Res-Attn-Res middle, skip-concat decoder,
 and a float32 tanh head.
@@ -67,11 +68,13 @@ import torch.nn.functional as F
 from mudiff_torch.config import MuDiffConfig
 from mudiff_torch.nn.blocks import (
     RESBLOCKS,
+    AdaptiveGroupNorm,
     AffineGroupNorm,
     AttnBlockpp,
     Combine,
     Downsample,
     GaussianFourierProjection,
+    PlainGroupNorm,
     ResnetBlockBigGANppAdagn,
     ResnetBlockBigGANppAdagnOne,
     ResnetBlockDDPMppAdagn,
@@ -99,6 +102,10 @@ from mudiff_torch.ops.int8_conv import (
     recording,
 )
 from mudiff_torch.utils.profiling import span
+
+# the modules whose forward makes one K5 call: the norm modules, and the
+# unfused stems with an inline norm
+NORMS = (AffineGroupNorm, AdaptiveGroupNorm, PlainGroupNorm, ConvFeatBlock, ConvBlockGAP)
 
 _SQRT2 = math.sqrt(2.0)
 # the pairwise gates: three pairs with three conditions, one with two
@@ -424,8 +431,11 @@ class NCSNppGenerator(nn.Module):
         fused stems (G1: 2 launches, G2: 3) and G2's gates (2); the convs
         of ``int8_sites`` run K4 and the rest K1; every FIR resample
         without a conv (resblocks, pyramids, ddpm resamples) one K2a or
-        K2b; every AttnBlockpp in ``flash`` mode K3 once.  Every wrapper
-        of ``ops.KERNEL_WRAPPERS`` has a key (the backward kernels 0)."""
+        K2b; every AttnBlockpp in ``flash`` mode K3 once; every norm
+        module, and the inline norm of an unfused ``ConvFeatBlock`` or
+        ``ConvBlockGAP``, K5 once (the fused stems G1 once, G2 thrice).
+        Every wrapper of ``ops.KERNEL_WRAPPERS`` has a key (the backward
+        kernels 0)."""
         counts = dict.fromkeys(KERNEL_WRAPPERS, 0)
         fused = [m for m in self._stems() if self.fused_stems]
         if self.adaptive:
@@ -440,8 +450,11 @@ class NCSNppGenerator(nn.Module):
                     counts[k] += v
             if isinstance(m, AttnBlockpp) and m.attn == "flash":
                 counts["flash_attn"] += 1
+            if isinstance(m, NORMS) and id(m) not in skip:
+                counts["group_norm_act"] += 1
         if self.fused_stems:
             counts["conv3x3"] += 3 if self.adaptive else 2
+            counts["group_norm_act"] += 3 if self.adaptive else 1
         if self.adaptive:
             counts["conv3x3"] += 2
         counts["int8_conv3x3"] = len(self.int8_sites())
@@ -494,15 +507,13 @@ class NCSNppGenerator(nn.Module):
     def _encode(self, x, conds, pseudo_target, caches):
         """The condition encoding: the trunk's first activation."""
         dt = self.dtype
-        act = F.silu
         if not self.adaptive:
             stems = self._stems()
             if not self.fused_stems:
                 with span("stems"):
-                    return torch.cat([m(img, act) for m, img in zip(stems, [x] + conds)],
-                                     dim=-1)
+                    return torch.cat([m(img) for m, img in zip(stems, [x] + conds)], dim=-1)
             return self._region(
-                "stems", lambda s: fused_convfeat_apply(s, stems, act, dt, caches["stems"]),
+                "stems", lambda s: fused_convfeat_apply(s, stems, dt, caches["stems"]),
                 torch.cat([x] + conds, dim=-1))
         if pseudo_target is None:
             raise ValueError("G2 needs pseudo_target (G1's prediction)")
@@ -512,15 +523,15 @@ class NCSNppGenerator(nn.Module):
             def encode(x_, pseudo_, *cs):
                 x_feat, feats, _ = fused_adaptive_encode(
                     x_, list(cs), pseudo_, self.encoder_x, pcs, self.pseudo_gap,
-                    act, dt, caches["stems"])
+                    dt, caches["stems"])
                 return (x_feat, *feats)
 
             x_feat, *feats = self._region("encode", encode, x, pseudo, *conds)
         else:
             with span("encode"):
-                style = self.pseudo_gap(pseudo, act)
-                x_feat = self.encoder_x(x, act)
-                feats = [m(c, style, act) for m, c in zip(pcs, conds)]
+                style = self.pseudo_gap(pseudo)
+                x_feat = self.encoder_x(x)
+                feats = [m(c, style) for m, c in zip(pcs, conds)]
         allc = torch.cat(feats, dim=-1)
         gates = [getattr(self, n) for n in self.gates]
         weights = [getattr(self, f"feat_weight_c{i + 1}") for i in range(self.n_weights)]
@@ -545,7 +556,7 @@ class NCSNppGenerator(nn.Module):
 
     def _pyramid_head(self, i_level: int, h: torch.Tensor) -> torch.Tensor:
         norm = getattr(self, f"pyramid_norm_{i_level}")
-        return getattr(self, f"pyramid_conv_{i_level}")(F.silu(norm(h)))
+        return getattr(self, f"pyramid_conv_{i_level}")(norm(h, silu=True))
 
     def _block(self, name, h, temb, zemb, seeds):
         return self._region(name, getattr(self, name), h, temb, zemb, seeds.get(name))
@@ -638,7 +649,7 @@ class NCSNppGenerator(nn.Module):
             if self.progressive == "output_skip":
                 h = pyramid
             else:
-                h = self.final_conv(act(self.final_norm(h)))
+                h = self.final_conv(self.final_norm(h, silu=True))
             if not cfg.not_use_tanh:
                 return torch.tanh(h.to(torch.float32))
             return h.to(torch.float32)

@@ -3,7 +3,9 @@ pyramid combiner, attention, resampling and the three AdaGN resblocks.
 
 The port of ``mudiff_tpu/nn/blocks.py:28-538``.  NHWC; ``dtype`` is the
 compute dtype, parameters stay float32, GroupNorm statistics are always
-float32 (eps 1e-6, flax's fast variance E[x^2] - E[x]^2).  Factor-2 FIR
+float32 (eps 1e-6, flax's fast variance E[x^2] - E[x]^2).  Every norm, its
+modulation and the SiLU after it run as kernel K5 (``ops.group_norm_act``)
+on CUDA tensors; ``group_norm`` is its plain chain.  Factor-2 FIR
 resampling without a conv runs kernels K2a/K2b (``ops.fir_down2`` /
 ``ops.fir_up2``) and the stride-1 3x3 convs K1 on CUDA tensors; the
 naive resamples (nearest, box mean), the FIR convs (``FIRConv2d``:
@@ -35,8 +37,10 @@ from mudiff_torch.ops import (
     fir_down2,
     fir_up2,
     flash_attn,
+    group_norm_act,
     upsample_conv_2d,
 )
+from mudiff_torch.ops.group_norm import group_norm_plain as group_norm  # K5's plain chain
 
 _SQRT2 = math.sqrt(2.0)
 ATTN_MODES = ("einsum", "bf16", "flash")
@@ -74,26 +78,9 @@ def naive_downsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return x.reshape(n, h // factor, factor, w // factor, factor, c).mean(dim=(2, 4))
 
 
-def group_norm(x: torch.Tensor, num_groups: int, out_dtype: torch.dtype,
-               weight: Optional[torch.Tensor] = None,
-               bias: Optional[torch.Tensor] = None,
-               eps: float = 1e-6) -> torch.Tensor:
-    """GroupNorm over an NHWC tensor with float32 statistics and affine,
-    output in ``out_dtype`` (flax ``nn.GroupNorm`` semantics)."""
-    b, h, w, c = x.shape
-    xf = x.to(torch.float32).reshape(b, h * w, num_groups, c // num_groups)
-    mean = xf.mean(dim=(1, 3), keepdim=True)
-    var = ((xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean).clamp_min(0.0)
-    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
-    if weight is not None:
-        y = y * weight.to(torch.float32)
-    if bias is not None:
-        y = y + bias.to(torch.float32)
-    return y.to(out_dtype)
-
-
 class AffineGroupNorm(nn.Module):
-    """Affine GroupNorm (torch nn.GroupNorm default affine=True)."""
+    """Affine GroupNorm (torch nn.GroupNorm default affine=True), then
+    SiLU with ``silu``."""
 
     def __init__(self, num_groups: int, channels: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -108,14 +95,17 @@ class AffineGroupNorm(nn.Module):
             self.weight.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         with span("nn.norm"):
-            return group_norm(x, self.num_groups, self.dtype, self.weight, self.bias)
+            return group_norm_act(x, self.num_groups, self.dtype, self.weight, self.bias,
+                                  silu=silu)
 
 
 class AdaptiveGroupNorm(nn.Module):
     """GroupNorm modulated by a style vector: style -> (gamma, beta), the
-    style bias initialized to gamma=1, beta=0 (reference layerspp.py:37-54)."""
+    style bias initialized to gamma=1, beta=0 (reference layerspp.py:37-54);
+    then SiLU with ``silu``.  The style dense's (B, 2C) output goes to K5
+    whole."""
 
     def __init__(self, channels: int, style_dim: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -128,20 +118,21 @@ class AdaptiveGroupNorm(nn.Module):
             dtype=dtype, device=device,
         )
 
-    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, style: torch.Tensor,
+                silu: bool = False) -> torch.Tensor:
         with span("nn.norm"):
-            gamma, beta = self.style(style).chunk(2, dim=-1)
-            h = group_norm(x, _num_groups(self.channels), self.dtype)
-            return gamma[:, None, None, :] * h + beta[:, None, None, :]
+            return group_norm_act(x, _num_groups(self.channels), self.dtype,
+                                  style=self.style(style), silu=silu)
 
 
 class PlainGroupNorm(nn.Module):
     """Non-affine GroupNorm, groups min(C // 4, 32), eps 1e-6, output in
-    the input's dtype (reference layerspp.py:56-65)."""
+    the input's dtype (reference layerspp.py:56-65); then SiLU with
+    ``silu``."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         with span("nn.norm"):
-            return group_norm(x, _num_groups(x.shape[-1]), x.dtype)
+            return group_norm_act(x, _num_groups(x.shape[-1]), x.dtype, silu=silu)
 
 
 class GaussianFourierProjection(nn.Module):
@@ -429,7 +420,8 @@ class ResnetBlockBigGANppAdagn(nn.Module):
         return AdaptiveGroupNorm(out_ch, zemb_dim, dtype=dtype, device=device)
 
     def _norm1(self, h: torch.Tensor, zemb: torch.Tensor) -> torch.Tensor:
-        return self.GroupNorm_1(h, zemb)
+        """The second norm and its SiLU."""
+        return self.GroupNorm_1(h, zemb, silu=True)
 
     def fir_launches(self) -> dict:
         """FIR kernel launches per forward: h and x are both resampled."""
@@ -453,12 +445,12 @@ class ResnetBlockBigGANppAdagn(nn.Module):
         mask (bool, the shape of ``Conv_1``'s input), the seed it is drawn
         from, or ``(seed, global batch, first row)``; None runs
         deterministically (flax's ``train=False``)."""
-        h = F.silu(self.GroupNorm_0(x, zemb))
+        h = self.GroupNorm_0(x, zemb, silu=True)
         h, x = self._resample(h), self._resample(x)
         h = self.Conv_0(h)
         if self.Dense_0 is not None and temb is not None:
             h = h + self.Dense_0(F.silu(temb))[:, None, None, :]
-        h = F.silu(self._norm1(h, zemb))
+        h = self._norm1(h, zemb)
         h = self.Conv_1(_dropout(h, self.dropout, dropout))
         if self.Conv_2 is not None:
             x = self.Conv_2(x)
@@ -474,7 +466,7 @@ class ResnetBlockBigGANppAdagnOne(ResnetBlockBigGANppAdagn):
         return AffineGroupNorm(_num_groups(out_ch), out_ch, dtype=dtype, device=device)
 
     def _norm1(self, h: torch.Tensor, zemb: torch.Tensor) -> torch.Tensor:
-        return self.GroupNorm_1(h)
+        return self.GroupNorm_1(h, silu=True)
 
 
 class ResnetBlockDDPMppAdagn(nn.Module):
@@ -510,10 +502,10 @@ class ResnetBlockDDPMppAdagn(nn.Module):
                 dropout: Optional[Union[int, Tuple[int, int, int], torch.Tensor]] = None
                 ) -> torch.Tensor:
         """As ``ResnetBlockBigGANppAdagn.forward``."""
-        h = self.Conv_0(F.silu(self.GroupNorm_0(x, zemb)))
+        h = self.Conv_0(self.GroupNorm_0(x, zemb, silu=True))
         if self.Dense_0 is not None and temb is not None:
             h = h + self.Dense_0(F.silu(temb))[:, None, None, :]
-        h = F.silu(self.GroupNorm_1(h, zemb))
+        h = self.GroupNorm_1(h, zemb, silu=True)
         h = self.Conv_1(_dropout(h, self.dropout, dropout))
         if self.NIN_0 is not None:
             x = self.NIN_0(x)

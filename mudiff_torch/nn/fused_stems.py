@@ -26,6 +26,11 @@ routes its shape: the stem conv2 when the generator's stems bit is on
 (its cache is then passed), the G2 gate and weight convs always.  Stem
 conv1, the pseudo-GAP branch and the head stay on K1.  K4 quantizes the
 fp32 fused kernel, built only when its cache is stale.
+
+Every stem norm and the SiLU after it (the stems' activation) run as K5
+(``ops.group_norm_act``): G1's four stacked stems as one call; G2's
+pseudo-GAP stem, its x stem and its three AdaGN stems as three, each
+reading its channel slice of the first conv's output in place.
 """
 
 from __future__ import annotations
@@ -35,9 +40,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from mudiff_torch.nn.blocks import AdaptiveGroupNorm, _num_groups, group_norm
+from mudiff_torch.nn.blocks import AdaptiveGroupNorm, _num_groups
 from mudiff_torch.nn.layers import Conv3x3, Dense
-from mudiff_torch.ops import conv3x3
+from mudiff_torch.ops import conv3x3, group_norm_act
 from mudiff_torch.utils.profiling import span
 from mudiff_torch.ops.int8_conv import (
     Int8WeightCache,
@@ -46,11 +51,8 @@ from mudiff_torch.ops.int8_conv import (
     routed_conv,
 )
 
-Act = Callable[[torch.Tensor], torch.Tensor]
-
-
 class ConvFeatBlock(nn.Module):
-    """Condition-image encoder: conv1 (in_ch -> F) - GroupNorm - act -
+    """Condition-image encoder: conv1 (in_ch -> F) - GroupNorm - SiLU -
     conv2 (F -> F) (reference layerspp.py:394-423)."""
 
     def __init__(self, features: int, in_ch: int = 1,
@@ -59,16 +61,16 @@ class ConvFeatBlock(nn.Module):
         self.conv1 = Conv3x3(in_ch, features, dtype=dtype, device=device)
         self.conv2 = Conv3x3(features, features, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, act: Act) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(x)
         with span("nn.norm"):
-            h = group_norm(h, _num_groups(h.shape[-1]), h.dtype)
-        return self.conv2(act(h))
+            h = group_norm_act(h, _num_groups(h.shape[-1]), h.dtype, silu=True)
+        return self.conv2(h)
 
 
 class ConvBlock(nn.Module):
     """Style-modulated condition encoder: conv1 - AdaGN(style)
-    (``group_norm.style``) - act - conv2 (reference layerspp.py:426-455)."""
+    (``group_norm.style``) - SiLU - conv2 (reference layerspp.py:426-455)."""
 
     def __init__(self, features: int, style_dim: int = 256, in_ch: int = 1,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -77,12 +79,12 @@ class ConvBlock(nn.Module):
         self.group_norm = AdaptiveGroupNorm(features, style_dim, dtype=dtype, device=device)
         self.conv2 = Conv3x3(features, features, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, style: torch.Tensor, act: Act) -> torch.Tensor:
-        return self.conv2(act(self.group_norm(self.conv1(x), style)))
+    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.group_norm(self.conv1(x), style, silu=True))
 
 
 class ConvBlockGAP(nn.Module):
-    """Image -> style vector: conv1 - GroupNorm - act - conv2 - global
+    """Image -> style vector: conv1 - GroupNorm - SiLU - conv2 - global
     mean - fc (F -> zemb_dim) (reference layerspp.py:458-501)."""
 
     def __init__(self, features: int, zemb_dim: int = 256, in_ch: int = 1,
@@ -92,11 +94,11 @@ class ConvBlockGAP(nn.Module):
         self.conv2 = Conv3x3(features, features, dtype=dtype, device=device)
         self.fc = Dense(features, zemb_dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, act: Act) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(x)
         with span("nn.norm"):
-            h = group_norm(h, _num_groups(h.shape[-1]), h.dtype)
-        h = self.conv2(act(h))
+            h = group_norm_act(h, _num_groups(h.shape[-1]), h.dtype, silu=True)
+        h = self.conv2(h)
         return self.fc(h.mean(dim=(1, 2)))
 
 
@@ -143,19 +145,21 @@ def _concat_cout(kernels: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat(list(kernels), dim=-1)
 
 
-def stacked_group_norm(h: torch.Tensor, n_stems: int,
-                       groups_per_stem: int) -> torch.Tensor:
-    """Non-affine GroupNorm over a stem-stacked tensor, groups inside stems."""
+def stacked_group_norm(h: torch.Tensor, n_stems: int, groups_per_stem: int,
+                       style: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Non-affine GroupNorm over a stem-stacked tensor, groups inside
+    stems, then SiLU; with ``style`` (B, 2C) each channel modulated by its
+    gamma and beta first."""
     with span("nn.norm"):
-        return group_norm(h, n_stems * groups_per_stem, h.dtype)
+        return group_norm_act(h, n_stems * groups_per_stem, h.dtype, style=style, silu=True)
 
 
 def fused_convfeat_apply(stacked: torch.Tensor, params: List[ConvFeatBlock],
-                         act: Act, dtype: torch.dtype,
+                         dtype: torch.dtype,
                          stems_int8: Optional[Int8WeightCache] = None) -> torch.Tensor:
     """N ConvFeatBlocks in one pass.  stacked: (B,H,W,N) 1-channel inputs;
-    returns (B,H,W,N*F), stem-major.  Two launches: conv1 on K1, conv2 on
-    K1 or (``stems_int8``) K4."""
+    returns (B,H,W,N*F), stem-major.  Three launch calls: conv1 on K1, the
+    norm on K5, conv2 on K1 or (``stems_int8``) K4."""
     n = len(params)
     f = params[0].conv1.out_ch
     w1 = [p.conv1.weight for p in params]
@@ -163,7 +167,7 @@ def fused_convfeat_apply(stacked: torch.Tensor, params: List[ConvFeatBlock],
     b1 = torch.cat([p.conv1.bias for p in params])
     b2 = torch.cat([p.conv2.bias for p in params])
     h = _conv(stacked, block_diag_conv1, w1, b1, dtype)
-    h = act(stacked_group_norm(h, n, _num_groups(f)))
+    h = stacked_group_norm(h, n, _num_groups(f))
     return _conv(h, block_diag_conv2, w2, b2, dtype, stems_int8)
 
 
@@ -174,18 +178,18 @@ def fused_adaptive_encode(
     px: ConvFeatBlock,
     pcs: List[ConvBlock],
     pgap: ConvBlockGAP,
-    act: Act,
     dtype: torch.dtype,
     stems_int8: Optional[Int8WeightCache] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
-    """G2 condition encoding, fused (three launches; the second conv of the
-    four non-pseudo stems on K4 with ``stems_int8``).
+    """G2 condition encoding, fused (three conv launches, the second conv
+    of the four non-pseudo stems on K4 with ``stems_int8``, and three K5).
 
     Equals pseudo_weight = ConvBlockGAP(pseudo), x_feat = ConvFeatBlock(x),
     feats[i] = ConvBlock(conds[i], pseudo_weight); all five Cin=1 first
-    convs run as one block-diagonal conv, the five GroupNorms as one, the
-    four non-pseudo second convs as one.  Returns (x_feat, feats,
-    pseudo_weight).
+    convs run as one block-diagonal conv, the GroupNorm and SiLU of the
+    pseudo stem, of the x stem and of the condition stems (AdaGN) as one K5
+    call each, the four non-pseudo second convs as one.  Returns (x_feat,
+    feats, pseudo_weight).
     """
     n_c = len(conds)
     f = px.conv1.out_ch
@@ -196,24 +200,25 @@ def fused_adaptive_encode(
     w1 = [px.conv1.weight] + [p.conv1.weight for p in pcs] + [pgap.conv1.weight]
     b1 = torch.cat([px.conv1.bias] + [p.conv1.bias for p in pcs] + [pgap.conv1.bias])
     h = _conv(stacked, block_diag_conv1, w1, b1, dtype)
-    h = stacked_group_norm(h, n, _num_groups(f))
+    groups = _num_groups(f)
 
     # pseudo branch first: the GAP style vector the condition blocks need
-    hp = act(h[..., n_c * f + f:])
+    hp = stacked_group_norm(h[..., (n - 1) * f:], 1, groups)
     hp = _conv(hp, _single, [pgap.conv2.weight], pgap.conv2.bias, dtype)
     pw = hp.mean(dim=(1, 2))
     pseudo_weight = pw @ pgap.fc.weight.to(pw.dtype).t() + pgap.fc.bias.to(pw.dtype)
 
-    parts = [act(h[..., :f])]  # x stem: plain GN -> act
-    for i, p in enumerate(pcs):
+    gammas, betas = [], []
+    for p in pcs:
         style = p.group_norm.style
         gb = (pseudo_weight @ style.weight.to(pseudo_weight.dtype).t()
               + style.bias.to(pseudo_weight.dtype))
         gamma, beta = gb.chunk(2, dim=-1)
-        hi = h[..., (i + 1) * f:(i + 2) * f]
-        parts.append(act(gamma[:, None, None, :] * hi + beta[:, None, None, :]))
-
-    h4 = torch.cat(parts, dim=-1)
+        gammas.append(gamma)
+        betas.append(beta)
+    h4 = torch.cat([stacked_group_norm(h[..., :f], 1, groups),
+                    stacked_group_norm(h[..., f:(n - 1) * f], n_c, groups,
+                                       style=torch.cat(gammas + betas, dim=-1))], dim=-1)
     w2 = [px.conv2.weight] + [p.conv2.weight for p in pcs]
     b2 = torch.cat([px.conv2.bias] + [p.conv2.bias for p in pcs])
     out = _conv(h4, block_diag_conv2, w2, b2, dtype, stems_int8)

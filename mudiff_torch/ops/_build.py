@@ -31,6 +31,7 @@ SOURCES = {
     "flash_attn": "flash_attn_kernel.cu",
     "flash_attn_bwd": "flash_attn_bwd_kernel.cu",
     "int8_conv": "int8_conv_kernel.cu",
+    "group_norm": "group_norm_kernel.cu",
 }
 
 NVCC_FLAGS = [

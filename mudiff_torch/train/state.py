@@ -252,7 +252,8 @@ class TrainState:
         FIR resample is transposed by the other one, except the launches
         whose inputs (x_{t+1}, conditions) need no gradient
         (``launches_off_the_gradient``: G1's first stem conv, with
-        one-channel images); every K3 forward has one dkv and one dq launch.
+        one-channel images); every K3 forward has one dkv and one dq launch;
+        K5 runs in the forwards only (its backward is plain PyTorch).
         """
         gens = (self.g1, self.g2)
         fwd = [g.kernel_launches_per_forward() for g in gens]
@@ -267,6 +268,7 @@ class TrainState:
         counts["fir_up2"] = 2 * f["fir_up2"] + b["fir_down2"] + 5 * cd + r1
         counts["flash_attn"] = 2 * f["flash_attn"]
         counts["flash_attn_bwd_dkv"] = counts["flash_attn_bwd_dq"] = f["flash_attn"]
+        counts["group_norm_act"] = 2 * f["group_norm_act"]
         return counts
 
 

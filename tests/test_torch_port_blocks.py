@@ -208,8 +208,8 @@ def test_fused_convfeat_apply_matches_jax():
     port = _port(_PortStems(adaptive=False), p)
     params = [port.encoder_x] + [getattr(port, f"encoder_c{i + 1}") for i in range(3)]
     with torch.inference_mode():
-        ours = fused_stems.fused_convfeat_apply(
-            torch.from_numpy(stacked), params, torch.nn.functional.silu, torch.float32)
+        ours = fused_stems.fused_convfeat_apply(torch.from_numpy(stacked), params,
+                                                torch.float32)
     _close(ours.numpy(), ref)
 
 
@@ -224,7 +224,7 @@ def test_fused_adaptive_encode_matches_jax():
         x_feat, feats, pw = fused_stems.fused_adaptive_encode(
             x, [c1, c2, c3], pseudo, port.encoder_x,
             [port.encoder_c1, port.encoder_c2, port.encoder_c3], port.pseudo_gap,
-            torch.nn.functional.silu, torch.float32)
+            torch.float32)
     _close(torch.cat([x_feat] + feats, dim=-1).numpy(), np.asarray(ref_feats))
     _close(pw.numpy(), np.asarray(ref_pw))
 

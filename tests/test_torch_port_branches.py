@@ -89,9 +89,10 @@ def _meta(cfg, adaptive, **kw):
         return NCSNppGenerator(cfg, adaptive=adaptive, attn="flash", device="meta", **kw)
 
 
-def _counts(conv, down, up, int8=0):
+def _counts(conv, down, up, norms, int8=0):
     return {"conv3x3": conv, "fir_down2": down, "fir_up2": up, "flash_attn": 1,
-            "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0, "int8_conv3x3": int8}
+            "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0, "int8_conv3x3": int8,
+            "group_norm_act": norms}
 
 
 def test_kernel_launches_per_forward_of_the_branches_at_nf64():
@@ -109,18 +110,24 @@ def test_kernel_launches_per_forward_of_the_branches_at_nf64():
     * B3: 17 x 2 + two nearest-then-conv upsamples + ``final_conv``, and
       the per-stem convs of three-channel images (G1 3 x 2 with two
       conditions; G2 pseudo-GAP, x and two conditions, 4 x 2, + 2 gates).
+
+    K5, one a norm: two a resblock, the middle attention's, then B1 the
+    three output_skip pyramid norms and the fused stems (G1 one, G2 three):
+    42 + 1 + 3 + 1 / 3; B2 the residual pyramid's one norm and
+    ``final_norm``: 34 + 1 + 2 + 1 / 3; B3 ``final_norm`` and one norm a
+    stem (G1 three, G2 four): 34 + 1 + 1 + 3 / 4.  int8 leaves K5's count.
     """
     base = config.brats_recipe(num_channels_dae=64)
-    want = {"B1": (_counts(47, 6, 6), _counts(50, 6, 6)),
-            "B2": (_counts(38, 0, 0), _counts(41, 0, 0)),
-            "B3": (_counts(43, 0, 0), _counts(47, 0, 0))}
+    want = {"B1": (_counts(47, 6, 6, 47), _counts(50, 6, 6, 49)),
+            "B2": (_counts(38, 0, 0, 38), _counts(41, 0, 0, 40)),
+            "B3": (_counts(43, 0, 0, 39), _counts(47, 0, 0, 40))}
     for name, over in (("B1", B1), ("B2", B2), ("B3", B3)):
         nc = 2 if name == "B3" else 3
         for adaptive, w in zip((False, True), want[name]):
             g = _meta(base.replace(**over), adaptive, num_conditions=nc)
             assert g.kernel_launches_per_forward() == w, (name, adaptive)
-    want8 = {"B1": (_counts(17, 6, 6, 30), _counts(18, 6, 6, 32)),
-             "B2": (_counts(13, 0, 0, 25), _counts(14, 0, 0, 27))}
+    want8 = {"B1": (_counts(17, 6, 6, 47, 30), _counts(18, 6, 6, 49, 32)),
+             "B2": (_counts(13, 0, 0, 38, 25), _counts(14, 0, 0, 40, 27))}
     for name, over in (("B1", B1), ("B2", B2)):
         for adaptive, w in zip((False, True), want8[name]):
             g = _meta(base.replace(use_int8=True, **over), adaptive).eval()

@@ -85,7 +85,7 @@ def test_attention_flash_matches_flax(monkeypatch, dtype):
     log = []
     with torch.inference_mode(), ops.record_calls(log):
         ours = port.eval()(torch.from_numpy(x).to(tdt)).float().numpy()
-    assert [name for name, _ in log] == ["flash_attn"]
+    assert [name for name, _ in log] == ["group_norm_act", "flash_attn"]
     assert ref.std() > 1e-2
     # fp32: the same exact einsum; bf16: the two frameworks round at
     # different places, a few bf16 ulps (as the bf16-score test allows)
@@ -130,7 +130,8 @@ def test_flash_launches_per_sample_at_the_recipe():
                 for a in (False, True)]
     assert gens[0].kernel_launches_per_forward() == {
         "conv3x3": 45, "fir_down2": 4, "fir_up2": 4, "flash_attn": 1,
-        "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0, "int8_conv3x3": 0}
+        "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0, "int8_conv3x3": 0,
+        "group_norm_act": 45}
     assert gens[1].kernel_launches_per_forward()["flash_attn"] == 1
     s = build_sampler(config.MuDiffConfig(**SMALL), device="cpu", attn="flash",
                       compute_dtype=torch.float32)

@@ -105,21 +105,27 @@ def test_kernel_launches_per_forward_at_nf64():
     with torch.device("meta"):
         g1 = NCSNppGenerator(cfg, device="meta")
         g2 = NCSNppGenerator(cfg, adaptive=True, device="meta")
-    # the default einsum attention launches no K3
+    # the default einsum attention launches no K3; K5 once a norm: 21
+    # resblocks x 2, the middle attention's, final_norm, the fused stems
+    # (G1 one call, G2 three)
     bwd = {"flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
     assert g1.kernel_launches_per_forward() == {"conv3x3": 45, "fir_down2": 4, "fir_up2": 4,
-                                                "flash_attn": 0, **bwd, "int8_conv3x3": 0}
+                                                "flash_attn": 0, **bwd, "int8_conv3x3": 0,
+                                                "group_norm_act": 45}
     assert g2.kernel_launches_per_forward() == {"conv3x3": 48, "fir_down2": 4, "fir_up2": 4,
-                                                "flash_attn": 0, **bwd, "int8_conv3x3": 0}
+                                                "flash_attn": 0, **bwd, "int8_conv3x3": 0,
+                                                "group_norm_act": 47}
     # int8 serving: the routed convs (30 / 32 sites) move from K1 to K4
     cfg8 = cfg.replace(use_int8=True)
     with torch.device("meta"):
         g1 = NCSNppGenerator(cfg8, device="meta").eval()
         g2 = NCSNppGenerator(cfg8, adaptive=True, device="meta").eval()
     assert g1.kernel_launches_per_forward() == {"conv3x3": 15, "fir_down2": 4, "fir_up2": 4,
-                                                "flash_attn": 0, **bwd, "int8_conv3x3": 30}
+                                                "flash_attn": 0, **bwd, "int8_conv3x3": 30,
+                                                "group_norm_act": 45}
     assert g2.kernel_launches_per_forward() == {"conv3x3": 16, "fir_down2": 4, "fir_up2": 4,
-                                                "flash_attn": 0, **bwd, "int8_conv3x3": 32}
+                                                "flash_attn": 0, **bwd, "int8_conv3x3": 32,
+                                                "group_norm_act": 47}
 
 
 def test_config_copy_equals_jax_config():

@@ -194,12 +194,13 @@ def test_wrappers_count_only_kernel_launches_and_record_calls():
         q = x.reshape(1, 64, 4)
         ops.flash_attn(q, q, q, 0.5)
         ops.int8_conv3x3(x, torch.randn(3, 3, 4, 2), None, compute_dtype=torch.float32)
+        ops.group_norm_act(x, 2, x.dtype, silu=True)
     # CPU tensors take the plain versions: no kernel launched
     assert ops.launch_counts() == {"conv3x3": 0, "fir_down2": 0, "fir_up2": 0, "flash_attn": 0,
                                    "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
-                                   "int8_conv3x3": 0}
+                                   "int8_conv3x3": 0, "group_norm_act": 0}
     assert [name for name, _ in log] == ["conv3x3", "fir_down2", "fir_up2", "flash_attn",
-                                         "int8_conv3x3"]
+                                         "int8_conv3x3", "group_norm_act"]
 
 
 def test_dispatch_refuses_devices_without_a_kernel():

@@ -16,6 +16,8 @@ volume).  Each seed's volume is predicted
   in fp32 to ``SAMPLE_TOL["fp32"]``);
 - with K1 alone through its kernel (K2 and K3 plain), so the difference
   from the reference is K1's;
+- with K5 (GroupNorm) alone replaced by its plain version (K1's path
+  checks need K1 on its kernel), so the rest is K5's;
 - with K3 alone replaced by its plain version, so the difference from
   the reference is K1's and K2's and the rest is K3's;
 - with K3 given a scale off by a factor 1 + eps (``FAULTS``): the kernel
@@ -28,7 +30,7 @@ Each prints the max abs difference from the reference over the volume
 and the mean abs difference over the predicted slices, in the sampler's
 [-1, 1] units.  For each seed the main path's sample (a batch-4 request
 of the smoke's sampler, bf16-score attention, injected noise) is read
-the same way: every kernel, K1 alone, and the K1 faults, each against
+the same way: every kernel, K1 alone, K5 alone, and the K1 faults, each against
 the plain versions (what the smoke holds to ``SAMPLE_TOL``).  For each
 fault the script also prints whether the smoke's per-shape check
 rejects it: K3's (``FLASH_TOL``) at (8, 4096, 256), K1's (``TOL``) at the
@@ -38,7 +40,7 @@ With ``--int8`` only the int8 leg's samples are read, for each seed and
 each mode (dynamic scales; static ones that ``calibrate_sampler``
 records, as ``chip_smoke.int8_samplers`` makes them): the W8A8 sample
 through every kernel, through K4 alone (the others plain, so the
-difference is K4's) and through K1 alone, each against the same sample
+difference is K4's), through K1 alone and through K5 alone, each against the same sample
 with every plain version forced (what the smoke holds to
 ``INT8_SAMPLE_TOL``), and the int8 sample against the bf16 one.
 
@@ -50,7 +52,7 @@ each also with K1 through its kernel at the Cout = 1 convs alone and
 everywhere but there (B1's Cout = 1 convs are its output pyramid's), the
 int8 dynamic sample also under the K1 faults; and one D (R1) + G
 iteration (batch 2, bf16, ``attn="flash"``) through every kernel, K1
-alone, K2 alone, K3 alone (forward and backward) and the plain versions
+alone, K2 alone, K3 alone (forward and backward), K5 alone and the plain versions
 with TF32 allowed and with cuDNN's heuristic algorithms (controls with
 no kernel), each against the iteration with every plain version forced
 and against the fp32 one: the largest
@@ -234,6 +236,7 @@ def sample_readings(cfg, sampler, seed: int, card: str, extra: dict | None = Non
         ref = sampler(*conds, x_init=x_init, noise=noise)
     variants = {"sample: kernels": contextlib.nullcontext,
                 "sample: K1 alone": lambda: smoke.kernels_only("conv3x3"),
+                "sample: K5 alone": lambda: smoke.kernels_only("group_norm_act"),
                 **{f"sample: {label}": (lambda fault=fault: k1_head_fault(fault))
                    for label, fault in k1_faults().items()},
                 **{f"sample: {label}": context for label, context in (extra or {}).items()}}
@@ -271,7 +274,8 @@ def int8_sample_readings(cfg, sampler, seed: int, card: str,
     dynamic, static, _ = smoke.int8_samplers(cfg, sampler, seed)
     variants = {"kernels": contextlib.nullcontext,
                 "K4 alone": lambda: smoke.kernels_only("int8_conv3x3"),
-                "K1 alone": lambda: smoke.kernels_only("conv3x3")}
+                "K1 alone": lambda: smoke.kernels_only("conv3x3"),
+                "K5 alone": lambda: smoke.kernels_only("group_norm_act")}
     out = {}
     for mode, s in (("dynamic", dynamic), ("static", static)):
         with ops.plain_kernels():
@@ -295,7 +299,7 @@ def int8_sample_readings(cfg, sampler, seed: int, card: str,
 
 def iteration_readings(cfg, seed: int, card: str) -> dict:
     """One D (R1) + G iteration on this seed's weights, batch and draws,
-    in bf16 through every kernel, K1 alone, K2 alone and K3 alone, and
+    in bf16 through every kernel, K1 alone, K2 alone, K3 alone and K5 alone, and
     through the plain versions with TF32 allowed and with cuDNN's
     heuristic algorithms (no kernel: the summation order moves, as K1's
     does), each against the bf16 iteration with every plain version
@@ -347,6 +351,7 @@ def iteration_readings(cfg, seed: int, card: str) -> dict:
                 "K2 alone": lambda: smoke.kernels_only("fir_down2", "fir_up2"),
                 "K3 alone": lambda: smoke.kernels_only("flash_attn", "flash_attn_bwd_dkv",
                                                        "flash_attn_bwd_dq"),
+                "K5 alone": lambda: smoke.kernels_only("group_norm_act"),
                 "plain, TF32 allowed": tf32_allowed,
                 "plain, cuDNN's heuristic algorithms": cudnn_heuristics}
     out = {"iteration: plain": reading(ref, False)}
@@ -435,6 +440,7 @@ def mask_readings(cfg, seed: int, card: str, mode: str) -> dict:
                 "K2 alone": lambda: smoke.kernels_only("fir_down2", "fir_up2"),
                 "K3 alone": lambda: smoke.kernels_only("flash_attn", "flash_attn_bwd_dkv",
                                                        "flash_attn_bwd_dq"),
+                "K5 alone": lambda: smoke.kernels_only("group_norm_act"),
                 **{label: (lambda fault=fault: k1_head_fault(fault))
                    for label, fault in k1_faults().items()}}
     out = {}
@@ -528,7 +534,7 @@ def seed_readings(cfg, seed: int, card: str, flags=(), int8: bool = False) -> di
     import torch
 
     from mudiff_torch import build_sampler
-    from mudiff_torch.ops import flash_attn_plain
+    from mudiff_torch.ops import KERNEL_WRAPPERS, flash_attn_plain
 
     sampler = build_sampler(cfg, device=smoke.DEVICE,
                             generator=torch.Generator().manual_seed(seed))
@@ -542,6 +548,8 @@ def seed_readings(cfg, seed: int, card: str, flags=(), int8: bool = False) -> di
     band = slice(mid - smoke.VOLUME_HALF, mid + smoke.VOLUME_HALF + 1)
     variants = {"kernels": contextlib.nullcontext,
                 "K1 alone": lambda: smoke.kernels_only("conv3x3"),
+                "K5 plain": lambda: smoke.kernels_only(*(k for k in KERNEL_WRAPPERS
+                                                         if k != "group_norm_act")),
                 "K3 plain": lambda: attention_as(flash_attn_plain),
                 **{f"K3 scale x (1 + {eps})": (lambda eps=eps: attention_as(scaled_kernel(eps)))
                    for eps in FAULTS},
